@@ -11,10 +11,19 @@ Phases, one JSON line each on standard output:
             at the shapes the pipeline uses, and times both;
   pipeline  renders the 47-frame 640x480 360-degree synthetic ring, runs the
             full-width single-scene reconstruction through
-            ScanSfM.process / finalize / export (loop closure off), checks
-            that the kernels were launched by it, that the artifacts exist
-            and that the trajectory is right (Sim(3) ATE under 5 % of the
-            trajectory's extent).
+            ScanSfM.process / finalize / export at the bench configuration
+            (loop closure with device-side verification, pose graph, final
+            structure refinement), checks that the kernels were launched by
+            it, that the artifacts exist, that the loop closed and that the
+            trajectory is right (Sim(3) ATE under 5 % of the trajectory's
+            extent);
+  arms      the tracker's other arms, which run the template-passed-in
+            kernel K4 and the one-image gather K5: lk_track_fb on one frame
+            pair with SFM_TPU_LK_FUSED_TMPL=0 (held to the default arm), with
+            SFM_TPU_LK_FUSED=0, and on a pair of unequal shapes; then an
+            8-frame prefix of the ring through ScanSfM with
+            SFM_TPU_LK_FUSED_TMPL=0 (K4 and K5 on their path through the
+            system).
 
 The next-to-last lines are the ``{"kernels": [...]}`` summary and the
 card's name and power limit; the last line is
@@ -24,7 +33,8 @@ kernel phase (a short first check of a changed kernel).  ``--profile`` adds
 a ``profile`` line: frames 1..4 of the ring twice more, plain for the wall
 time and under ``torch.profiler`` for the device's busy time, with the
 estimated idle share and the operators that took most device and most host
-time.
+time; and a ``loop_ab`` line: the 47-frame run with loop closure off and on,
+in turns, for what loop closure costs on this card.
 """
 
 from __future__ import annotations
@@ -216,19 +226,56 @@ def check_lk_gather(dev, rng, pyr0, pyr1) -> dict:
     }
 
 
-def lk_step_chain(lk, img0, img1, p, v, good, args, tol, gap_factor):
-    """One LK update at a time along the plain version's trajectory: the
-    largest |kernel - plain| of any non-NaN track on any update, and the
-    largest of it as a share of tol + gap_factor * |plain f32 - plain f64|
-    on the same update."""
-    _, radius, min_det = args
-    img0d, img1d, pd = img0.double(), img1.double(), p.double()
+def k3_level(pyr0, pyr1, L, p, v, iters, which):
+    """One level of K3 ("kernel"), or of its plain version in float32
+    ("plain") or float64 ("plain64")."""
+    from sfm_tpu_torch.ops.kernels import lk_kernels as lk
+
+    if which == "kernel":
+        return lk.lk_level_fused(pyr0[L], pyr1[L], p, v, iters, RADIUS, 1e-4)
+    cast = (lambda t: t.double()) if which == "plain64" else (lambda t: t)
+    return lk.lk_level_plain(cast(pyr0[L]), cast(pyr1[L]), cast(p), cast(v),
+                             iters, RADIUS, 1e-4)
+
+
+def k4_inputs(pyr0, pyr1, L, p, v, dtype=torch.float32):
+    """K4's inputs as the template-passed-in arm makes them: the search
+    windows, the template patch and the base (window gathers by slicing,
+    which K5 matches bit for bit)."""
+    from sfm_tpu_torch.ops.kernels import lk_kernels as lk
+
+    P = 2 * RADIUS + 1
+    img0, img1 = pyr0[L].to(dtype), pyr1[L].to(dtype)
+    p, v = p.to(dtype), v.to(dtype)
+    o0 = p - RADIUS
+    blk0, a0 = lk._load_blocks(img0, o0, P, 0)
+    tmpl = lk.template_patch(blk0, a0, o0, P)
+    blk1, a1 = lk._load_blocks(img1, p + v - RADIUS, P, lk.MARGIN)
+    return blk1, tmpl, o0 - a1, v
+
+
+def k4_level(pyr0, pyr1, L, p, v, iters, which):
+    """One level of K4 ("kernel"), or of its plain version in float32
+    ("plain") or float64 ("plain64"), on inputs made at (p, v)."""
+    from sfm_tpu_torch.ops.kernels import lk_kernels as lk
+
+    dtype = torch.float64 if which == "plain64" else torch.float32
+    blk1, tmpl, base, v = k4_inputs(pyr0, pyr1, L, p, v, dtype)
+    fn = lk.lk_level_tmpl if which == "kernel" else lk.lk_level_tmpl_plain
+    return fn(blk1, tmpl, base, v, iters, 1e-4)
+
+
+def lk_step_chain(level, p, v, good, tol, gap_factor):
+    """One LK update at a time along the plain version's trajectory
+    (``level(p, v, iters, which)`` runs one level): the largest |kernel -
+    plain| of any non-NaN track on any update, and the largest of it as a
+    share of tol + gap_factor * |plain f32 - plain f64| on the same
+    update."""
     worst = excess = 0.0
     for _ in range(ITERS):
-        k1 = lk.lk_level_fused(img0, img1, p, v, 1, radius, min_det)
-        p1 = lk.lk_level_plain(img0, img1, p, v, 1, radius, min_det)
-        p1d = lk.lk_level_plain(img0d, img1d, pd, v.double(), 1, radius,
-                                min_det)
+        k1 = level(p, v, 1, "kernel")
+        p1 = level(p, v, 1, "plain")
+        p1d = level(p, v, 1, "plain64")
         d = (k1 - p1).abs().amax(-1)[good].double()
         gap = (p1.double() - p1d).abs().amax(-1)[good]
         if not bool(torch.isfinite(d).all()):
@@ -239,10 +286,10 @@ def lk_step_chain(lk, img0, img1, p, v, good, args, tol, gap_factor):
     return worst, excess
 
 
-def check_lk_level(dev, rng, pyr0, pyr1) -> dict:
-    """K3 against the plain version on all four levels: non-zero incoming
-    flow, half of the tracks within one search window of a border, and a
-    second run with 40 % NaN positions.
+def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level) -> dict:
+    """K3 (or, with ``level=k4_level``, K4) against the plain version on
+    all four levels: non-zero incoming flow, half of the tracks within one
+    search window of a border, and a second run with 40 % NaN positions.
 
     All ``ITERS`` iterations in one launch:
     interior tracks (at least one search window from every border, so no
@@ -252,9 +299,16 @@ def check_lk_level(dev, rng, pyr0, pyr1) -> dict:
     converge and then amplifies the last bit of every sum from iteration
     to iteration, so that no two summation orders agree on the end point -
     not kernel and plain version, and not the plain version with itself in
-    float64.  Where the plain version is stable (its float32 and float64
-    runs agree within 1e-4 px; at least 90 % of the border tracks must
-    be), kernel and plain version agree within 1e-3 px.  The median over
+    float64.  Where the plain version is stable, kernel and plain version
+    agree within 1e-3 px; at least 90 % of the border tracks must be
+    stable.  Stable means: the end point stays within 1e-4 px under both
+    perturbations of the plain version's rounding at hand - its float64
+    run, and its float32 run on the transposed problem (images transposed,
+    x and y swapped: the same arithmetic with every sum and bilinear blend
+    taken in another order, which is how the kernel differs from it).
+    Against float64 alone, about one border track in a thousand passes as
+    stable while the plain version's transposed run moves it by more than
+    1e-3 px.  The median over
     all non-NaN tracks is under 1e-5 px, and every non-NaN track has a
     finite flow.
 
@@ -271,8 +325,14 @@ def check_lk_level(dev, rng, pyr0, pyr1) -> dict:
 
     P = 2 * RADIUS + 1
     WIN = P + 2 * lk.MARGIN + 3
+    k4 = level is k4_level
     tol, tol_border, med_tol = 1e-4, 1e-3, 1e-5
     stable_tol, min_stable = 1e-4, 0.9
+    pyr0T = [q.T.contiguous() for q in pyr0]
+    pyr1T = [q.T.contiguous() for q in pyr1]
+
+    def swap(a):
+        return a[:, [1, 0]].contiguous()
     step_gap_factor = 2.0
     worst = worst_border = worst_med = worst_step = worst_excess = 0.0
     ok = True
@@ -290,12 +350,14 @@ def check_lk_level(dev, rng, pyr0, pyr1) -> dict:
                 np.float32)
             p = torch.as_tensor(pts, device=dev)
             v = torch.as_tensor(v0, device=dev)
-            args = (ITERS, RADIUS, 1e-4)
-            out = lk.lk_level_fused(pyr0[L], pyr1[L], p, v, *args)
+
+            def run(p, v, iters, which, L=L):
+                return level(pyr0, pyr1, L, p, v, iters, which)
+
+            out = run(p, v, ITERS, "kernel")
             torch.cuda.synchronize()
-            ref = lk.lk_level_plain(pyr0[L], pyr1[L], p, v, *args)
-            ref64 = lk.lk_level_plain(pyr0[L].double(), pyr1[L].double(),
-                                      p.double(), v.double(), *args)
+            ref = run(p, v, ITERS, "plain")
+            ref64 = run(p, v, ITERS, "plain64")
             good = torch.as_tensor(~bad, device=dev)
             finite = bool(torch.isfinite(out[good]).all()
                           and torch.isfinite(ref[good]).all())
@@ -303,7 +365,10 @@ def check_lk_level(dev, rng, pyr0, pyr1) -> dict:
             inner = (good & (pp[:, 0] >= WIN) & (pp[:, 0] <= W - 1 - WIN)
                      & (pp[:, 1] >= WIN) & (pp[:, 1] <= H - 1 - WIN))
             border = good & ~inner
-            stable = border & ((ref.double() - ref64).abs().amax(-1)
+            refT = swap(level(pyr0T, pyr1T, L, swap(p), swap(v), ITERS,
+                              "plain"))
+            stable = border & ((ref - refT).abs().amax(-1) < stable_tol) & (
+                (ref.double() - ref64).abs().amax(-1)
                                < stable_tol)
             frac = float(stable.sum()) / max(float(border.sum()), 1.0)
             d = (out - ref).abs().amax(-1)
@@ -312,8 +377,8 @@ def check_lk_level(dev, rng, pyr0, pyr1) -> dict:
             med = float(d[good].median())
             worst, worst_border = max(worst, err), max(worst_border, err_b)
             worst_med = max(worst_med, med)
-            err_s, excess = lk_step_chain(lk, pyr0[L], pyr1[L], p, v, good,
-                                          args, tol, step_gap_factor)
+            err_s, excess = lk_step_chain(run, p, v, good, tol,
+                                          step_gap_factor)
             worst_step = max(worst_step, err_s)
             worst_excess = max(worst_excess, excess)
             ok &= (finite and err <= tol and err_b <= tol_border
@@ -328,26 +393,41 @@ def check_lk_level(dev, rng, pyr0, pyr1) -> dict:
                               "max_step_excess": excess,
                               "median_abs_err": med, "finite": finite})
             if nan_frac == 0.0:
-                ms_levels.append(time_ms(lambda: lk.lk_level_fused(
-                    pyr0[L], pyr1[L], p, v, *args)))
+                if k4:  # the kernel alone, on inputs made once
+                    ins = k4_inputs(pyr0, pyr1, L, p, v)
+                    kern = lambda: lk.lk_level_tmpl(*ins, ITERS, 1e-4)  # noqa: E731
+                    plain = lambda: lk.lk_level_tmpl_plain(*ins, ITERS, 1e-4)  # noqa: E731
+                else:
+                    kern = lambda: run(p, v, ITERS, "kernel")  # noqa: E731
+                    plain = lambda: run(p, v, ITERS, "plain")  # noqa: E731
+                ms_levels.append(time_ms(kern))
                 if L == 0:
-                    plain_ms = time_ms(lambda: lk.lk_level_plain(
-                        pyr0[0], pyr1[0], p, v, *args), n=3, warm=1)
+                    plain_ms = time_ms(plain, n=3, warm=1)
     ms = ms_levels[0]
     H, W = pyr0[0].shape
     # what the function needs: cur and the four gradient neighbours are the
     # same bilinear map at shifted pixels, so one map of (P+2)^2 px per
     # iteration covers them (7 flops a pixel, the four weights formed
     # once); then per patch pixel 2 differences and halvings, the residual,
-    # 5 products and 5 sums (15 flops); the template is one P^2 map
+    # 5 products and 5 sums (15 flops); K3 also builds the template, one
+    # P^2 map, which K4 is given
     n_map, n_px = (P + 2) * (P + 2), P * P
-    flops = T_TRACKS * (ITERS * (n_map * 7 + n_px * 15) + n_px * 7)
-    b_ms, b_by = bound(2 * H * W * 4 + T_TRACKS * 24, flops)
+    flops = T_TRACKS * ITERS * (n_map * 7 + n_px * 15)
+    if k4:
+        # in: the search windows, the templates, base and flow; out: flow
+        b_ms, b_by = bound(T_TRACKS * ((WIN * WIN + n_px) * 4 + 24), flops)
+        ident = {"name": "lk_level_tmpl",
+                 "source": "sfm_tpu_torch/csrc/lk_level_tmpl.cu",
+                 "replaces": "sfm_tpu/ops/pallas/lk_iter_kernel.py:184"}
+    else:
+        b_ms, b_by = bound(2 * H * W * 4 + T_TRACKS * 24,
+                           flops + T_TRACKS * n_px * 7)
+        ident = {"name": "lk_level_fused",
+                 "source": "sfm_tpu_torch/csrc/lk_level_fused.cu",
+                 "replaces": "sfm_tpu/ops/pallas/lk_iter_kernel.py:246 + "
+                             "sfm_tpu/ops/pallas/block_gather_kernel.py:209"}
     return {
-        "name": "lk_level_fused", "route": "cuda",
-        "source": "sfm_tpu_torch/csrc/lk_level_fused.cu",
-        "replaces": "sfm_tpu/ops/pallas/lk_iter_kernel.py:246 + "
-                    "sfm_tpu/ops/pallas/block_gather_kernel.py:209",
+        **ident, "route": "cuda",
         "shape": [T_TRACKS, P, WIN, ITERS], "max_abs_err": worst,
         "max_abs_err_border": worst_border, "tol_border": tol_border,
         "max_abs_err_step": worst_step, "max_step_excess": worst_excess,
@@ -358,13 +438,53 @@ def check_lk_level(dev, rng, pyr0, pyr1) -> dict:
     }
 
 
+def check_lk_gather1(dev, rng, pyr1) -> dict:
+    """K5, the one-image gather, bit-exact against slicing on all four
+    levels with garbage starts; timed at level 0 with the search window."""
+    from sfm_tpu_torch.ops.kernels import lk_kernels as lk
+
+    P = 2 * RADIUS + 1
+    exact = True
+    ms = plain_ms = None
+    for L in range(LEVELS):
+        H, W = pyr1[L].shape
+        for win in (P + 3, P + 2 * lk.MARGIN + 3):
+            s = np.stack([rng.integers(-40, W + 40, T_TRACKS),
+                          rng.integers(-40, H + 40, T_TRACKS)], -1)
+            s[:5] = [[0, 0], [W, H], [W - win, H - win], [-2**31, -2**31],
+                     [2**31 - 1, 2**31 - 1]]
+            st = torch.as_tensor(s.astype(np.int32), device=dev)
+            out = lk.lk_gather(pyr1[L], st, win)
+            torch.cuda.synchronize()
+            exact &= bool(torch.equal(out, lk.lk_gather_plain(pyr1[L], st,
+                                                              win)))
+            if L == 0 and win > P + 3:
+                ms = time_ms(lambda: lk.lk_gather(pyr1[0], st, win))
+                plain_ms = time_ms(lambda: lk.lk_gather_plain(pyr1[0], st,
+                                                              win))
+                H0, W0, win0 = H, W, win
+    # the image read once, the starts, every window written once
+    b_ms, b_by = bound(H0 * W0 * 4 + T_TRACKS * 8
+                       + T_TRACKS * win0 * win0 * 4, 0.0)
+    return {
+        "name": "lk_gather", "route": "cuda",
+        "source": "sfm_tpu_torch/csrc/lk_gather_pair.cu",
+        "replaces": "sfm_tpu/ops/pallas/block_gather_kernel.py:133",
+        "shape": [T_TRACKS, win0], "max_abs_err": 0.0 if exact else 1.0,
+        "tol": 0.0, "ok": exact, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+
 def phase_kernels(dev, frame0) -> list[dict]:
     rng = np.random.default_rng(0)
     pyr0, pyr1 = lk_inputs(dev, rng)
     with torch.no_grad():
         rows = [check_shi_tomasi(dev, frame0),
                 check_lk_gather(dev, rng, pyr0, pyr1),
-                check_lk_level(dev, rng, pyr0, pyr1)]
+                check_lk_level(dev, rng, pyr0, pyr1),
+                check_lk_level(dev, rng, pyr0, pyr1, level=k4_level),
+                check_lk_gather1(dev, rng, pyr1)]
     for r in rows:
         r["kernel_ms"] = r["ms"]
     return rows
@@ -375,10 +495,16 @@ def phase_kernels(dev, frame0) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
+# ATE ratio of the same run with loop closure and the final refinement
+# off, as PERF.md records it (section 6): printed beside this run's
+ATE_LOOP_OFF_RECORDED = 0.0310
+
+
 def smoke_config():
-    """The bench configuration of the JAX package at full width, with loop
-    closure and the final structure refinement off (this slice of the
-    port)."""
+    """The bench configuration of the JAX package (bench.py bench_config)
+    at full width: loop closure on with device-side verification, the
+    synthetic ring's lowered descriptor gate, the final structure
+    refinement at its default 10 iterations."""
     from sfm_tpu_torch.config import load_config
 
     return load_config(None, overrides={
@@ -391,26 +517,50 @@ def smoke_config():
         "ransac.sampson_thresh": 2e-5,
         "ba.iters": 3,
         "ba.window": 6,
-        "ba.global_iters": 0,
-        "loop.enabled": False,
+        "loop.enabled": True,
+        "loop.device_verify": True,
+        "loop.score_thresh": 0.3,
+        "loop.ransac_thresh": 2e-5,
     })
 
 
-def run_pipeline(dev, K, frames, names, out_dir):
+def run_pipeline(dev, K, frames, names, out_dir, cfg=None):
     from sfm_tpu_torch.models.scan_pipeline import ScanSfM
 
-    cfg = smoke_config()
+    cfg = cfg or smoke_config()
     s = ScanSfM(K, cfg, n_frames=FRAMES, chunk=32, p_cap=16384, p_ba=1024,
                 device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i, g in enumerate(frames):
         s.process(i, names[i], g)
-    s.finalize()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s.finalize()  # the tail chunk, its loop check, the refinement
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     info = s.export(out_dir)
-    return s, info, dt
+    return s, info, dt, t1 - t0
+
+
+def time_host_stages(s) -> dict:
+    """Wall seconds of one pose-graph solve and of the finalize
+    refinement, each run once more on the final state (both end in a pull
+    to the host, so the host clock times the device work too)."""
+    from sfm_tpu_torch.models import scan_pipeline as sp
+
+    cfg = s.cfg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s._pose_graph_solve(s._ring_poses())
+    t1 = time.perf_counter()
+    X, _, cost = sp._finalize_refine_core(
+        s._Kt, s.carry.ring, s.carry.X, int(s.carry.n_pts), True, False,
+        True, iters=cfg.ba.global_iters, rounds=1, lambda0=cfg.ba.lambda0,
+        huber_delta=cfg.ba.huber_delta / float(s.K[0, 0]))
+    float(cost)
+    t2 = time.perf_counter()
+    return {"pose_graph_solve_s": t1 - t0, "finalize_refine_s": t2 - t1}
 
 
 def phase_pipeline(dev) -> tuple[dict, dict]:
@@ -434,10 +584,12 @@ def phase_pipeline(dev) -> tuple[dict, dict]:
         lk_kernels.level_launches = 0
         lk_kernels.gather_launches = 0
         shi_tomasi_kernel.launches = 0
-        s, info, dt = run_pipeline(dev, ds.K, frames, names, tmp / "out")
+        s, info, dt, dt_frames = run_pipeline(dev, ds.K, frames, names,
+                                              tmp / "out")
         counts = {"lk_level_fused": lk_kernels.level_launches,
                   "lk_gather_pair": lk_kernels.gather_launches,
                   "shi_tomasi_score": shi_tomasi_kernel.launches}
+        stages = time_host_stages(s)
 
         # every tensor of the carry lives on the card
         from sfm_tpu_torch.models.scan_pipeline import carry_tensors
@@ -458,7 +610,10 @@ def phase_pipeline(dev) -> tuple[dict, dict]:
         ratio = float(res["rmse"]) / extent
 
     n_kf, n_pts = len(s.kfs), len(s.map_xyz)
-    expect_k3 = (FRAMES - 1) * LEVELS * 2
+    loops = [(e.i, e.j) for e in s.edges if e.is_loop]
+    # the tracker's two passes per frame, plus two per loop verification,
+    # LEVELS launches each
+    expect_k3 = (FRAMES - 1 + s.loop_verifications) * LEVELS * 2
     checks = {
         "carry_on_cuda": on_card,
         "k3_launches": counts["lk_level_fused"] == expect_k3,
@@ -466,6 +621,7 @@ def phase_pipeline(dev) -> tuple[dict, dict]:
         "artifacts": have and len(centers) == n_kf and len(ply) > 0,
         "keyframes": n_kf >= 30,
         "map_points": n_pts > 2000,
+        "loop_edges": len(loops) >= 1,
         "finite": bool(np.isfinite(est).all()
                        and np.isfinite(s.map_xyz).all()),
         "ate": ratio < 0.05,
@@ -473,8 +629,142 @@ def phase_pipeline(dev) -> tuple[dict, dict]:
     line = {
         "phase": "pipeline", "frames": FRAMES, "keyframes": n_kf,
         "map_points": n_pts, "exported_points": int(len(ply)),
-        "ate_ratio": ratio, "wall_s": dt, "fps": FRAMES / dt,
+        "loop_edges": loops, "loop_verifications": s.loop_verifications,
+        "pose_graph_solves": s.pg_solves,
+        "ate_ratio": ratio, "ate_ratio_loop_off_recorded": ATE_LOOP_OFF_RECORDED,
+        "wall_s": dt, "fps": FRAMES / dt,
+        "wall_s_frames": dt_frames, "wall_s_finalize": dt - dt_frames,
+        **stages,
         "launches": counts, "checks": checks,
+        "ok": all(checks.values()),
+    }
+    return line, counts
+
+
+# ---------------------------------------------------------------------------
+# phase: arms (K4 and K5 on their paths)
+# ---------------------------------------------------------------------------
+
+
+ARM_ENV = ("SFM_TPU_LK_FUSED", "SFM_TPU_LK_FUSED_TMPL")
+
+
+def with_arm(fused: str, tmpl: str, fn):
+    """Run ``fn()`` with the tracker's arm switches set, restoring them."""
+    import os
+
+    old = {k: os.environ.get(k) for k in ARM_ENV}
+    os.environ.update(dict(zip(ARM_ENV, (fused, tmpl))))
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_arms(dev) -> tuple[dict, dict]:
+    """lk_track_fb on frames 0 -> 1 of the ring through the default arm
+    (a), the template-passed-in arm (b: SFM_TPU_LK_FUSED_TMPL=0), the
+    unfused arm (c: SFM_TPU_LK_FUSED=0) and a pair of unequal shapes (the
+    second image 8 columns narrower: arm (b) by shape); then the first 8
+    frames of the ring through ScanSfM under SFM_TPU_LK_FUSED_TMPL=0, the
+    path through the system that runs K4 and K5 (their launch counts are
+    reset just before it and read just after).  Arm (b) is held to arm
+    (a) on the interior tracks at K3's interior tolerance."""
+    from sfm_tpu_torch.models.scan_pipeline import ScanSfM
+    from sfm_tpu_torch.ops import features, image as im, klt
+    from sfm_tpu_torch.ops.kernels import lk_kernels as lk
+    from sfm_tpu_torch.utils.dataset import TempleRing
+    from sfm_tpu_torch.utils.synthetic import generate_dataset
+
+    n_frames = 8
+    cfg = smoke_config()
+    kc = cfg.klt
+    with tempfile.TemporaryDirectory(prefix="sfm_arms_") as tmp:
+        generate_dataset(Path(tmp), short_ring_spec(n_frames),
+                         name_prefix="templeR")
+        ds = TempleRing.from_dir(Path(tmp))
+        frames = [ds.load_gray(i) for i in range(n_frames)]
+
+        def pyr(g):
+            return [p.contiguous() for p in im.build_pyramid(
+                torch.as_tensor(g, device=dev).to(torch.float32), LEVELS)]
+
+        pyr0, pyr1 = pyr(frames[0]), pyr(frames[1])
+        pyr1_cut = pyr(np.ascontiguousarray(frames[1][:, :-8]))
+        xy, _, valid = features.detect_corners(
+            pyr0[0], torch.zeros((1, 2), device=dev),
+            torch.zeros((1,), dtype=torch.bool, device=dev),
+            max_new=T_TRACKS, cell=max(int(kc.min_distance), 2),
+            quality=kc.quality, device=dev)
+
+        def track(p1):
+            return klt.lk_track_fb(pyr0, p1, xy, valid, LEVELS, ITERS,
+                                   RADIUS, kc.fb_thresh, device=dev)
+
+        lk.tmpl_launches = lk.gather1_launches = 0
+        fa, oka = with_arm("1", "1", lambda: track(pyr1))
+        fb, okb = with_arm("1", "0", lambda: track(pyr1))
+        k4_b, k5_b = lk.tmpl_launches, lk.gather1_launches
+        fc, okc = with_arm("0", "1", lambda: track(pyr1))
+        k5_c = lk.gather1_launches - k5_b
+        lk.tmpl_launches = lk.gather1_launches = 0
+        fu, oku = with_arm("1", "1", lambda: track(pyr1_cut))
+        k4_u, k5_u = lk.tmpl_launches, lk.gather1_launches
+        H, W = pyr0[0].shape
+        WIN = 2 * RADIUS + 1 + 2 * lk.MARGIN + 3
+        # interior tracks that arm (a) tracked (a track LK does not
+        # converge on amplifies the last bit of every sum and ends
+        # anywhere, on either arm)
+        inner = (oka & (xy[:, 0] >= WIN) & (xy[:, 0] <= W - 1 - WIN)
+                 & (xy[:, 1] >= WIN) & (xy[:, 1] <= H - 1 - WIN))
+        d_b = float((fb - fa).abs().amax(-1)[inner].max())
+        d_c = float((fc - fa).abs().amax(-1)[inner].max())
+
+        # the path through the system under SFM_TPU_LK_FUSED_TMPL=0
+        def run():
+            s = ScanSfM(ds.K, cfg, n_frames=n_frames, chunk=n_frames,
+                        p_cap=16384, p_ba=1024, device=dev)
+            for i, g in enumerate(frames):
+                s.process(i, ds.records[i].img, g)
+            s.finalize()
+            return s
+
+        k3_before = lk.level_launches
+        lk.tmpl_launches = lk.gather1_launches = 0
+        s = with_arm("1", "0", run)
+        counts = {"lk_level_tmpl": lk.tmpl_launches,
+                  "lk_gather": lk.gather1_launches}
+        k3_scan = lk.level_launches - k3_before
+    expect_k4 = (n_frames - 1 + s.loop_verifications) * LEVELS * 2
+    checks = {
+        "b_launches": k4_b == 2 * LEVELS and k5_b == 4 * LEVELS,
+        "c_launches": k5_c == 4 * LEVELS,
+        "unequal_launches": k4_u == 2 * LEVELS and k5_u == 4 * LEVELS,
+        "b_matches_a_interior": d_b <= 1e-4,
+        "unequal_finite": bool(torch.isfinite(fu[oku]).all()
+                               and int(oku.sum()) > 100),
+        "scan_keyframes": len(s.kfs) >= 2,
+        "scan_k4_launches": counts["lk_level_tmpl"] == expect_k4,
+        "scan_k5_launches": counts["lk_gather"] == 2 * expect_k4,
+        "scan_no_k3": k3_scan == 0,
+    }
+    line = {
+        "phase": "arms", "tracks": int(valid.sum()),
+        "n_interior": int(inner.sum()),
+        "max_abs_diff_b_vs_a_interior": d_b,
+        "max_abs_diff_c_vs_a_interior": d_c,
+        "same_ok_interior_b_vs_a": bool(torch.equal(oka & inner,
+                                                    okb & inner)),
+        "ok_tracks": {"a": int(oka.sum()), "b": int(okb.sum()),
+                      "c": int(okc.sum()), "unequal": int(oku.sum())},
+        "lk_track_fb_launches": {"b": [k4_b, k5_b], "c": [0, k5_c],
+                                 "unequal": [k4_u, k5_u]},
+        "scan_frames": n_frames, "scan_keyframes": len(s.kfs),
+        "scan_launches": counts, "checks": checks,
         "ok": all(checks.values()),
     }
     return line, counts
@@ -542,6 +832,36 @@ def phase_profile(dev, n_frames: int = 5, top: int = 12) -> dict:
     }
 
 
+def phase_loop_ab(dev) -> dict:
+    """What loop closure costs end to end: the 47-frame ring at the bench
+    configuration with loop closure and the final refinement off and on,
+    in turns off, on, on, off, on this card and in this process (after the
+    pipeline phase's warm-up)."""
+    import dataclasses
+
+    from sfm_tpu_torch.utils.dataset import TempleRing
+    from sfm_tpu_torch.utils.synthetic import generate_dataset
+
+    on = smoke_config()
+    off = dataclasses.replace(
+        on, loop=dataclasses.replace(on.loop, enabled=False),
+        ba=dataclasses.replace(on.ba, global_iters=0))
+    walls = {"off": [], "on": []}
+    with tempfile.TemporaryDirectory(prefix="sfm_ab_") as tmp:
+        tmp = Path(tmp)
+        generate_dataset(tmp / "ring", ring_spec(), name_prefix="templeR")
+        ds = TempleRing.from_dir(tmp / "ring")
+        frames = [ds.load_gray(i) for i in range(FRAMES)]
+        names = [r.img for r in ds.records]
+        for arm in ("off", "on", "on", "off"):
+            cfg = on if arm == "on" else off
+            _, _, dt, _ = run_pipeline(dev, ds.K, frames, names,
+                                       tmp / arm, cfg)
+            walls[arm].append(dt)
+    return {"phase": "loop_ab", "order": ["off", "on", "on", "off"],
+            "wall_s": walls}
+
+
 def short_ring_spec(n: int):
     """The first ``n`` cameras of the ring (the angular step is kept)."""
     import dataclasses
@@ -559,7 +879,8 @@ def main() -> int:
     ap.add_argument("--only", choices=["kernels"], default=None,
                     help="stop after this phase")
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler breakdown of 4 frames")
+                    help="add a torch.profiler breakdown of 4 frames and "
+                         "a loop-off/on comparison of the 47-frame run")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -602,9 +923,17 @@ def main() -> int:
     if not line["ok"]:
         print("chip_smoke: the pipeline phase failed", file=sys.stderr)
         return 1
+    with torch.no_grad():
+        line, arm_counts = phase_arms(dev)
+    emit(line)
+    if not line["ok"]:
+        print("chip_smoke: the arms phase failed", file=sys.stderr)
+        return 1
+    counts.update(arm_counts)
     if args.profile:
         with torch.no_grad():
             emit(phase_profile(dev))
+            emit(phase_loop_ab(dev))
 
     for r in rows:
         r["launches"] = counts[r["name"]]

@@ -8,14 +8,19 @@ keyframe policy → edge RANSAC + scale propagation + PnP → first-vs-last
 triangulation → map/observation bookkeeping → sliding-window Schur-LM BA)
 runs on the device; the host uploads frames, branches on the keyframe
 decision, and pulls one small metrics row per frame at the end of each
-chunk.
+chunk.  Between chunks the host collects the loop edges the keyframe
+branch verified (or verifies the chunk's candidates itself, with
+``loop.device_verify`` off), solves the pose graph and pushes the corrected
+poses back into the carry; ``finalize`` re-triangulates and polishes the
+map against the final poses.
 
 Device state (fixed capacity):
   * track table        (T,)    — TrackerState from models/tracker.py
   * keyframe ring      (K,)    — pose, frame idx, full (T,)-slot snapshot
                                  (uv/ids/valid), per-slot point ids, the
-                                 32x32 global descriptor, and the incoming
-                                 odometry edge
+                                 32x32 global descriptor, the incoming
+                                 odometry edge, and the keyframe's gray
+                                 image (device-side loop verification)
   * map point table    (P,3)   — cursor-allocated, never compacted
   * per-slot overlays  (T,)    — current point id, first-observation
                                  (kf, uv) for deferred triangulation
@@ -27,13 +32,14 @@ ring row where the same track id occupied slot s, so window BA reads its
 observation set with plain gathers.
 
 Where the JAX twin's ``lax.scan``/``lax.cond`` make one compiled program,
-this is a Python loop with two host branches per frame (replenish, and the
-keyframe decision: one host sync each).  Where the JAX twin rebuilds the
+this is a Python loop with host branches (replenish and the keyframe
+decision, one host sync each per frame; the loop-verification gate, one
+more per keyframe with loop closure on).  Where the JAX twin rebuilds the
 ring and map tables with ``.at[].set``, this code updates them IN PLACE:
 a carry handed to ``frame_step``/``run_chunk`` is consumed by the call.
 
-This slice runs with loop closure off and without the final structure
-refinement; ``ScanSfM`` raises for configurations that need them.
+``ScanSfM`` runs every single-scene configuration of the JAX twin except
+the ORB loop flavor (``loop.method="orb"``), for which it raises.
 """
 
 from __future__ import annotations
@@ -50,7 +56,8 @@ from sfm_tpu_torch.config import (ExportGeometry, SystemConfig,
 from sfm_tpu_torch.models import tracker
 from sfm_tpu_torch.models.mapstate import Edge, Keyframe
 from sfm_tpu_torch.ops import (ba as ba_ops, descriptors, epipolar,
-                               image as im, pnp as pnp_ops, triangulate)
+                               features, image as im, klt, pnp as pnp_ops,
+                               posegraph as pg_ops, triangulate)
 from sfm_tpu_torch.ops.features import top_k_stable
 from sfm_tpu_torch.ops.linalg import nanmedian
 from sfm_tpu_torch.utils import artifacts, np_geom
@@ -62,8 +69,8 @@ f32 = torch.float32
 i32 = torch.int32
 
 # per-frame metrics vector layout (the only per-frame device→host data).
-# Y_KFID..Y_LV_T carry the device-verified loop edge of the JAX twin; this
-# slice always writes the "not run" pack there (-1, -1, zeros).
+# Y_KFID..Y_LV_T carry the device-verified loop edge (loop.device_verify):
+# Y_LV_OK is 1.0 verified / 0.0 ran-and-rejected / -1.0 not-run.
 Y_FRAME, Y_VALID, Y_KF, Y_OK, Y_INL, Y_PAR, Y_ALIVE, Y_NPTS, \
     Y_LOOP_S, Y_LOOP_K, Y_BA0, Y_BA1, Y_EDGE_INL, Y_SCALE, Y_PNP_INL, \
     Y_NEW_PTS, Y_KFID, Y_LV_OK, Y_LV_I, Y_LV_INL, Y_LV_NTR, \
@@ -93,8 +100,9 @@ class KeyframeRing:
     e_tji: torch.Tensor     # (K,3)
     e_inl: torch.Tensor     # (K,)    i32
     e_valid: torch.Tensor   # (K,)    bool
-    img: torch.Tensor       # (K,1,1) u8 placeholder (keyframe grays of the
-    #                         JAX twin's device-side loop verification)
+    img: torch.Tensor       # (K,H,W) u8 keyframe grays for device-side
+    #                         loop verification ((K,1,1) dummy when
+    #                         loop.device_verify is off)
 
 
 @dataclasses.dataclass
@@ -202,13 +210,17 @@ def bootstrap_carry(cfg: SystemConfig, kf_cap: int, p_cap: int, img0,
     T = cfg.klt.max_tracks
     pyr = _build_pyr(to_device(img0, dev), cfg.klt.pyr_levels)
     trk = tracker.bootstrap(pyr[0], cfg.klt, device=dev)
-    ring = _empty_ring(kf_cap, T, dev)
+    store_img = cfg.loop.enabled and cfg.loop.device_verify
+    ring = _empty_ring(kf_cap, T, dev,
+                       *(pyr[0].shape if store_img else (1, 1)))
     ring.frame[0] = int(idx0)
     ring.kvalid[0] = True
     ring.uv[0] = trk.pos.to(f32)
     ring.ids[0] = trk.ids
     ring.tvalid[0] = trk.valid
     ring.desc[0] = descriptors.global_desc_32(pyr[0]).to(f32)
+    if store_img:
+        ring.img[0] = pyr[0].to(torch.uint8)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.ransac.seed if seed is None else seed)
     minus1 = -torch.ones((T,), dtype=i32, device=dev)
@@ -351,7 +363,8 @@ def _ransac(cfg: SystemConfig, gen, xi, xj, mask, pri=None):
 
 
 def _keyframe_branch(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry,
-                     idx: int, kf_id: int, rp_frame=None, pri=None):
+                     idx: int, kf_id: int, rp_frame=None, pri=None,
+                     gt_C=None):
     """All keyframe-time geometry + bookkeeping, device-side (ref
     py:951-988 add_keyframe / cpp:1765-1871 keyframe block).
 
@@ -362,6 +375,18 @@ def _keyframe_branch(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry,
     the snapshot then equals the prefix's input and the two solves are
     statistically identical.  ``pri``: optional (H,T) sampling priorities
     for the edge RANSAC (tests).
+
+    ``gt_C`` (F,3) f32 per-frame ground-truth camera centers: when
+    ``cfg.use_gt_scale`` is set, the edge translation is scaled by the GT
+    baseline between the previous keyframe's frame and this frame (ref
+    py:888-898) instead of the monocular scale estimate.
+
+    With loop closure on (``loop.device_verify``), the best older keyframe
+    by descriptor score is gated on the device and, when the gate passes
+    (one host sync per keyframe decides), verified here: LK re-track of
+    its mapped tracks into this frame, PnP against its map points, and the
+    relative scale the closure reveals.  The edge rides out in the metrics
+    row's loop-verify pack.
 
     Updates the carry in place and returns (carry, ykf)."""
     ring = carry.ring
@@ -396,32 +421,16 @@ def _keyframe_branch(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry,
     # LS) -----------------------------------------------------------------
     pid_ok = tval & (carry.slot_pid >= 0)
     Xs = carry.X[torch.clamp(carry.slot_pid, 0, P_CAP - 1).long()]
-    Xi_cam = Xs @ R_wc_i.T + t_wc_i
-    w3 = Xi_cam @ R_e.T
-    a = t_eu[None, :2] - xj * t_eu[2]
-    b = xj * w3[:, 2:3] - w3[:, :2]
-    den = torch.sum(a * a, dim=-1)
-    good = pid_ok & (Xi_cam[:, 2] > 1e-6) & (den > 1e-10)
-    sols = torch.sum(a * b, dim=-1) / torch.where(
-        den > 1e-10, den, torch.ones_like(den))
-    s_est = nanmedian(torch.where(good, sols,
-                                  torch.full_like(sols, float("nan"))))
-    s_est = torch.where(torch.isnan(s_est), torch.ones_like(s_est), s_est)
-    one = torch.ones_like(s_est)
-    s_map = torch.where((torch.sum(good) >= 5) & (s_est > 1e-6), s_est, one)
-    # monocular scale-smoothness prior: adjacent keyframe baselines on a
-    # continuous trajectory change smoothly, but the median-of-ratios
-    # scale estimate can misfire when few mapped tracks survive a hard
-    # frame. Clamp the propagated step length to [1/3, 3]x the previous
-    # keyframe baseline.
-    b_prev = _norm(ring.t_cw[prev_i] - ring.t_cw[max(prev_i - 1, 0)])
-    have_prev = (b_prev > 1e-9) & (prev_i >= 1)
-    s_map = torch.clamp(
-        s_map,
-        min=torch.where(have_prev, b_prev / 3.0, torch.zeros_like(b_prev)),
-        max=torch.where(have_prev, 3.0 * b_prev,
-                        torch.full_like(b_prev, float("inf"))),
-    )
+    if cfg.use_gt_scale and gt_C is not None:
+        # GT baseline between the previous keyframe's frame and this one
+        # (ref py:888-898): exact metric scale, no estimator, no clamp
+        f_prev = torch.clamp(ring.frame[prev_i], min=0).long()
+        s_gt = _norm(gt_C[int(idx)] - gt_C[f_prev])
+        s_map = torch.where(s_gt > 1e-12, s_gt,
+                            torch.ones_like(s_gt)).to(f32)
+    else:
+        s_map = _propagated_scale(ring, prev_i, Xs, pid_ok, R_wc_i, t_wc_i,
+                                  R_e, t_eu, xj)
 
     # --- anchored pose + PnP refinement against the map ----------------
     R_a = R_e @ R_wc_i
@@ -500,6 +509,8 @@ def _keyframe_branch(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry,
     ring.e_tji[kf_id] = t_store.to(f32)
     ring.e_inl[kf_id] = rp.num_inliers
     ring.e_valid[kf_id] = True
+    if cfg.loop.enabled and cfg.loop.device_verify:
+        ring.img[kf_id] = carry.prev_pyr[0].to(torch.uint8)
     # --- observation backfill: newly triangulated points get their id
     # written into every earlier ring row where the same track id held
     # slot s (full track history, ref py:935-975) ------------------------
@@ -518,14 +529,24 @@ def _keyframe_branch(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry,
     R_cw_cur, t_cw_cur, ba0, ba1 = _window_ba(
         cfg, p_ba, Kf, ring, X, n_pts, kf_id)
 
-    # --- global-descriptor score of the best older keyframe (the metrics
-    # row's loop_score/loop_cand; verification and pose graph are not in
-    # this slice) ---------------------------------------------------------
+    # --- loop-closure candidate scoring (cpp:1827-1831) ----------------
     cand = (karange[:, 0] <= kf_id - cfg.loop.min_kf_gap) & ring.kvalid
-    scores = torch.where(cand, ring.desc @ desc,
-                         torch.full((K,), float("-inf"), device=dev))
+    scores = descriptors.score_bank(ring.desc, cand, desc)
     best_k = torch.argmax(scores)
     best_s = scores[best_k]
+
+    # --- device-side loop verification (loop.device_verify): the gates
+    # (score, spatial consistency, mapped-track count) on the device, the
+    # decision on the host (one sync), the LK re-track + PnP verification
+    # only for a keyframe that passes (the reference fires per keyframe,
+    # cpp:1822-1866); the edge rides out in the metrics row, the pose-graph
+    # pushback is a host step ---------------------------------------------
+    lv = _lv_not_run(dev)
+    if cfg.loop.enabled and cfg.loop.device_verify:
+        fire = _loop_gate(cfg, ring, kf_id, best_k, best_s)
+        fire, bk = torch.stack([fire.to(torch.int64), best_k]).tolist()
+        if fire:
+            lv = _lv_verify(cfg, Kf, ring, X, carry.prev_pyr, kf_id, bk)
 
     carry.R_cw, carry.t_cw = R_cw_cur, t_cw_cur
     carry.last_kf_frame = torch.tensor(int(idx), dtype=i32, device=dev)
@@ -546,9 +567,145 @@ def _keyframe_branch(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry,
             torch.sum(ok_new).to(f32),
             torch.tensor(float(kf_id), dtype=f32, device=dev),
         ]),
-        _lv_not_run(dev),
+        lv,
     ])
     return carry, ykf
+
+
+def _propagated_scale(ring: KeyframeRing, prev_i: int, Xs, pid_ok, R_wc_i,
+                      t_wc_i, R_e, t_eu, xj):
+    """Monocular scale of the new edge from the mapped tracks (1-dof robust
+    least squares, the median of per-track solutions), clamped to [1/3, 3]x
+    the previous keyframe baseline."""
+    Xi_cam = Xs @ R_wc_i.T + t_wc_i
+    w3 = Xi_cam @ R_e.T
+    a = t_eu[None, :2] - xj * t_eu[2]
+    b = xj * w3[:, 2:3] - w3[:, :2]
+    den = torch.sum(a * a, dim=-1)
+    good = pid_ok & (Xi_cam[:, 2] > 1e-6) & (den > 1e-10)
+    sols = torch.sum(a * b, dim=-1) / torch.where(
+        den > 1e-10, den, torch.ones_like(den))
+    s_est = nanmedian(torch.where(good, sols,
+                                  torch.full_like(sols, float("nan"))))
+    s_est = torch.where(torch.isnan(s_est), torch.ones_like(s_est), s_est)
+    one = torch.ones_like(s_est)
+    s_map = torch.where((torch.sum(good) >= 5) & (s_est > 1e-6), s_est, one)
+    # monocular scale-smoothness prior: adjacent keyframe baselines on a
+    # continuous trajectory change smoothly, but the median-of-ratios
+    # scale estimate can misfire when few mapped tracks survive a hard
+    # frame. Clamp the propagated step length to [1/3, 3]x the previous
+    # keyframe baseline.
+    b_prev = _norm(ring.t_cw[prev_i] - ring.t_cw[max(prev_i - 1, 0)])
+    have_prev = (b_prev > 1e-9) & (prev_i >= 1)
+    return torch.clamp(
+        s_map,
+        min=torch.where(have_prev, b_prev / 3.0, torch.zeros_like(b_prev)),
+        max=torch.where(have_prev, 3.0 * b_prev,
+                        torch.full_like(b_prev, float("inf"))),
+    )
+
+
+def _nan_where(mask, x):
+    return torch.where(mask, x, torch.full_like(x, float("nan")))
+
+
+def _loop_gate(cfg: SystemConfig, ring: KeyframeRing, kf_id: int, best_k,
+               best_s):
+    """0-dim bool: whether the loop candidate ``best_k`` of keyframe
+    ``kf_id`` is worth a verification.  Spatial-consistency gate (twin of
+    the host ``gate_loop_candidates``): true revisits are within a few
+    odometry steps, noise-texture false positives anywhere on the
+    trajectory; plus the descriptor score and the candidate's mapped-track
+    count."""
+    lcfg = cfg.loop
+    K = ring.kvalid.shape[0]
+    karange = torch.arange(K, device=ring.kvalid.device)
+    kv_prev = ring.kvalid & (karange <= kf_id)
+    Cs = ring.t_cw
+    step_m = kv_prev[1:] & kv_prev[:-1]
+    steps = torch.linalg.vector_norm(Cs[1:] - Cs[:-1], dim=-1)
+    med = torch.nan_to_num(nanmedian(_nan_where(step_m, steps)), nan=1.0)
+    nv = torch.clamp(torch.sum(kv_prev), min=1)
+    ctr = torch.sum(torch.where(kv_prev[:, None], Cs,
+                                torch.zeros_like(Cs)), dim=0) / nv
+    extent = torch.amax(torch.where(
+        kv_prev, torch.linalg.vector_norm(Cs - ctr, dim=-1),
+        torch.zeros_like(Cs[:, 0])))
+    b_cand = _norm(Cs[kf_id] - Cs[best_k])
+    b_gate = torch.maximum(5.0 * med, 0.25 * extent)
+    n_mapped_old = torch.sum(ring.tvalid[best_k] & (ring.pid[best_k] >= 0))
+    return (torch.isfinite(best_s) & (best_s > lcfg.score_thresh)
+            & (b_cand <= b_gate) & (n_mapped_old >= 30))
+
+
+def _pnp_loop_edge(kcfg, Kf, ring: KeyframeRing, X, pyr_old, pyr_new,
+                   cand_kf: int, cur_kf: int, huber_delta):
+    """The loop edge cand_kf -> cur_kf measured with PnP: LK-retrack the
+    old keyframe's MAPPED tracks (pyramid ``pyr_old``) into the new frame
+    (``pyr_new``), robust PnP against their map points — metric,
+    scale-resolved, and accurate at any baseline (E = [t]x R vanishes with
+    the baseline, so the reference's E-matrix re-estimate, cpp:1856-1859,
+    is the fallback only) — and the relative scale the closure reveals:
+    median depth of cur_kf's map points in its own pose over the old
+    segment's at the PnP pose (node convention x_w = s·R·x_c + C gives
+    s_rel = s_i/s_j; 1 when either side has fewer than 20 depths).
+
+    Returns one f32 tensor [R_ji (9), t_ji (3), inliers, n_tracked, s_rel,
+    n_mapped_old], so the host needs a single pull."""
+    P_CAP = X.shape[0]
+    pid_old = ring.pid[cand_kf]
+    m_old = ring.tvalid[cand_kf] & (pid_old >= 0)
+    X_old = X[torch.clamp(pid_old, 0, P_CAP - 1).long()]
+    R_cw_o, C_o = ring.R_cw[cand_kf], ring.t_cw[cand_kf]
+    R_wc0, t_wc0 = _wc(R_cw_o, C_o)
+    new_pts, ok = klt.lk_track_fb(
+        pyr_old, pyr_new, ring.uv[cand_kf], m_old, levels=kcfg.pyr_levels,
+        iters=kcfg.iters, radius=kcfg.win_radius, fb_thresh=kcfg.fb_thresh,
+        device=X.device)
+    xj = epipolar.normalize_by_K(Kf, new_pts.to(f32))
+    use = ok & m_old
+    Rv, tv, info = pnp_ops.refine_pose(R_wc0, t_wc0, X_old, xj, use,
+                                       iters=12, huber_delta=huber_delta)
+    # pose-graph edge i->j from the metric PnP pose
+    R_ji = Rv @ R_cw_o
+    t_ji = Rv @ C_o + tv
+    d_i = (X_old @ Rv.T + tv)[:, 2]
+    ok_i = m_old & (d_i > 1e-9)
+    pid_j = ring.pid[cur_kf]
+    m_j = ring.tvalid[cur_kf] & (pid_j >= 0)
+    X_j = X[torch.clamp(pid_j, 0, P_CAP - 1).long()]
+    d_j = ((X_j - ring.t_cw[cur_kf]) @ ring.R_cw[cur_kf])[:, 2]
+    ok_j = m_j & (d_j > 1e-9)
+    med_i = nanmedian(_nan_where(ok_i, d_i))
+    med_j = nanmedian(_nan_where(ok_j, d_j))
+    s_ok = ((torch.sum(ok_i) >= 20) & (torch.sum(ok_j) >= 20)
+            & (med_i > 1e-12))
+    s_rel = torch.nan_to_num(
+        torch.where(s_ok, med_j / torch.clamp(med_i, min=1e-12),
+                    torch.ones_like(med_i)), nan=1.0)
+    return torch.cat([
+        R_ji.reshape(9).to(f32), t_ji.to(f32),
+        torch.stack([info["inliers"].to(f32), torch.sum(use).to(f32),
+                     s_rel.to(f32), torch.sum(m_old).to(f32)]),
+    ])
+
+
+def _lv_verify(cfg: SystemConfig, Kf, ring: KeyframeRing, X, pyr_new,
+               kf_id: int, best_k: int):
+    """Verify the loop edge best_k -> kf_id on the device: the old
+    keyframe's pyramid from its stored gray, then ``_pnp_loop_edge``.
+    Returns the 17-value loop-verify pack [ok, best_k, inliers, n_tracked,
+    s_rel, R_ji (9), t_ji (3)]."""
+    lcfg = cfg.loop
+    pyr_old = _build_pyr(ring.img[best_k].to(f32), cfg.klt.pyr_levels)
+    pack = _pnp_loop_edge(cfg.klt, Kf, ring, X, pyr_old, pyr_new, best_k,
+                          kf_id, cfg.ba.huber_delta / Kf[0, 0])
+    inliers, n_tracked = pack[12], pack[13]
+    ok_edge = ((n_tracked >= min(lcfg.min_tracked, 30))
+               & (inliers >= lcfg.min_inliers))
+    head = torch.stack([ok_edge.to(f32), torch.full_like(inliers, best_k),
+                        inliers, n_tracked, pack[14]])
+    return torch.cat([head, pack[:12]])
 
 
 def _lv_not_run(device):
@@ -635,10 +792,11 @@ def _pack_frame_metrics(carry: ScanCarry, idx: int, y_pre, ykf):
 
 
 def frame_step(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry, img,
-               idx: int, pri_frame=None, pri_edge=None):
+               idx: int, pri_frame=None, pri_edge=None, gt_C=None):
     """One frame: tracking prefix, then the keyframe branch when the
     policy asks for it.  The keyframe decision (with the edge-reuse flag
     and the keyframe counter) is the frame's one host pull here.
+    ``gt_C``: optional (F,3) GT centers for cfg.use_gt_scale.
     Returns (carry, y (NY,) f32 metrics row)."""
     carry, make_kf, reuse, rp, y_pre = _track_and_pose_rp(
         cfg, Kf, carry, img, idx, pri=pri_frame)
@@ -647,29 +805,173 @@ def frame_step(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry, img,
     if mk:
         carry, ykf = _keyframe_branch(
             cfg, p_ba, Kf, carry, idx, kf_id,
-            rp_frame=rp if ru else None, pri=pri_edge)
+            rp_frame=rp if ru else None, pri=pri_edge, gt_C=gt_C)
     else:
         ykf = ykf_none(carry.X.device)
     return carry, _pack_frame_metrics(carry, idx, y_pre, ykf)
 
 
 def run_chunk(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry,
-              imgs, idxs, fvalid):
+              imgs, idxs, fvalid, gt_C=None):
     """Process a chunk of frames.
 
     imgs: sequence of (H,W) u8/f32 tensors on the carry's device; idxs
     (C,) frame indices and fvalid (C,) bool on the host — padding frames
     (fvalid False) are no-ops with an all-zero metrics row, as in the JAX
-    twin.  Returns (carry, ys (C,NY) f32 on the device)."""
+    twin.  ``gt_C`` (F,3) optional per-frame GT centers for
+    cfg.use_gt_scale (see _keyframe_branch).  Returns (carry, ys (C,NY)
+    f32 on the device)."""
     dev = carry.X.device
     ys = []
     for img, idx, fval in zip(imgs, idxs, fvalid):
         if not bool(fval):
             ys.append(torch.zeros((NY,), dtype=f32, device=dev))
             continue
-        carry, y = frame_step(cfg, p_ba, Kf, carry, img, int(idx))
+        carry, y = frame_step(cfg, p_ba, Kf, carry, img, int(idx),
+                              gt_C=gt_C)
         ys.append(y)
     return carry, torch.stack(ys)
+
+
+# ---------------------------------------------------------------------------
+# Host-driven loop verification (loop.device_verify off)
+# ---------------------------------------------------------------------------
+
+
+def _loop_verify_stage(gen, Kf, img_old, img_new, levels: int,
+                       lk_iters: int, radius: int, fb_thresh, cell: int,
+                       quality, num_hypotheses: int, sampson_thresh,
+                       min_inliers: int, pri=None):
+    """Loop-candidate geometric verification (ref cpp:1833-1859):
+    Shi-Tomasi re-detect on the old keyframe + LK fwd/bwd re-track +
+    E-RANSAC gate.  Returns the pack [R (9), t (3), ok, inliers,
+    n_tracked] as one f32 tensor, so the host needs a single pull."""
+    dev = Kf.device
+    pyr_old = _build_pyr(img_old, levels)
+    pyr_new = _build_pyr(img_new, levels)
+    xy, _, dvalid = features.detect_corners(
+        pyr_old[0], torch.zeros((1, 2), device=dev),
+        torch.zeros((1,), dtype=torch.bool, device=dev), max_new=1024,
+        cell=cell, quality=quality, device=dev)
+    new_pts, ok = klt.lk_track_fb(
+        pyr_old, pyr_new, xy, dvalid, levels=levels, iters=lk_iters,
+        radius=radius, fb_thresh=fb_thresh, device=dev)
+    xi = epipolar.normalize_by_K(Kf, xy.to(f32))
+    xj = epipolar.normalize_by_K(Kf, new_pts.to(f32))
+    rp = epipolar.find_E_ransac(
+        gen, xi, xj, ok, num_hypotheses=num_hypotheses,
+        sampson_thresh=sampson_thresh, min_inliers=min_inliers, pri=pri)
+    return torch.cat([
+        rp.R.reshape(9).to(f32), rp.t.to(f32),
+        torch.stack([rp.ok.to(f32), rp.num_inliers.to(f32),
+                     torch.sum(ok).to(f32)]),
+    ])
+
+
+# ---------------------------------------------------------------------------
+# Packed pulls and the finalize refinement
+# ---------------------------------------------------------------------------
+
+
+def _ring_pose_stage(carry: ScanCarry) -> np.ndarray:
+    """ONE packed pull of the ring poses + odometry edges + bookkeeping
+    used by the host between chunks (loop gating, pose-graph assembly),
+    as float64 numpy."""
+    ring = carry.ring
+    flat = torch.cat([
+        ring.R_cw.reshape(-1), ring.t_cw.reshape(-1),
+        ring.frame.to(f32), ring.kvalid.to(f32),
+        ring.e_Rji.reshape(-1), ring.e_tji.reshape(-1),
+        ring.e_inl.to(f32), ring.e_valid.to(f32),
+        carry.kf_count.to(f32)[None],
+    ])
+    return flat.cpu().numpy().astype(np.float64)
+
+
+def _unpack_ring_poses(flat: np.ndarray, K: int) -> dict:
+    return {
+        "R_cw": flat[: K * 9].reshape(K, 3, 3),
+        "t_cw": flat[K * 9: K * 12].reshape(K, 3),
+        "frame": flat[K * 12: K * 13].astype(np.int64),
+        "kvalid": flat[K * 13: K * 14] > 0.5,
+        "e_Rji": flat[K * 14: K * 23].reshape(K, 3, 3),
+        "e_tji": flat[K * 23: K * 26].reshape(K, 3),
+        "e_inl": flat[K * 26: K * 27].astype(np.int64),
+        "e_valid": flat[K * 27: K * 28] > 0.5,
+        "n_kf": int(flat[K * 28]),
+    }
+
+
+def _finalize_refine_core(Kf, ring: KeyframeRing, X, n_pts: int,
+                          do_retri0: bool, do_retri_later: bool,
+                          enable_refine: bool, iters: int, rounds: int,
+                          lambda0, huber_delta):
+    """The refinement rounds of ``ScanSfM.finalize`` (re-triangulate +
+    frozen-pose point polish), reading the ring in place.
+
+    Each point's first/last observing (keyframe, slot) comes from two
+    integer segment reductions over the ring's (K,T) point-id matrix
+    (row-major (k,s) codes), and the polish uses every ring slot as a
+    masked observation row.  A round re-triangulates only when its gate
+    is set, and polishes only with ``enable_refine``.  Returns (X (P,3)
+    f32, cost0, cost) with the costs None when no polish ran."""
+    K_, T_ = ring.pid.shape
+    P = X.shape[0]
+    dev = X.device
+    obs_ok = (ring.tvalid & (ring.pid >= 0) & (ring.pid < n_pts)
+              & ring.kvalid[:, None])
+    pid_safe = torch.where(obs_ok, ring.pid.long(),
+                           torch.full_like(ring.pid, P, dtype=torch.long))
+    BIG = K_ * T_
+    code = torch.arange(BIG, device=dev).reshape(K_, T_)
+    first = torch.full((P + 1,), BIG, dtype=torch.long, device=dev)
+    first = first.scatter_reduce(
+        0, pid_safe.reshape(-1),
+        torch.where(obs_ok, code, torch.full_like(code, BIG)).reshape(-1),
+        "amin")[:P]
+    last = torch.full((P + 1,), -1, dtype=torch.long, device=dev)
+    last = last.scatter_reduce(
+        0, pid_safe.reshape(-1),
+        torch.where(obs_ok, code, torch.full_like(code, -1)).reshape(-1),
+        "amax")[:P]
+    has = (first < BIG) & (last >= 0)
+    fc = torch.clamp(first, 0, BIG - 1)
+    lc = torch.clamp(last, 0, BIG - 1)
+    ka, sa = fc // T_, fc % T_
+    kb, sb = lc // T_, lc % T_
+    ok2 = has & (ka != kb)
+    # world->camera extrinsics from the (pose-graph-corrected) ring
+    R_wc, t_wc = _wc(ring.R_cw, ring.t_cw)
+    xa = epipolar.normalize_by_K(Kf, ring.uv[ka, sa].to(f32))
+    xb = epipolar.normalize_by_K(Kf, ring.uv[kb, sb].to(f32))
+    # the polish problem's static side: every (k,s) ring slot is an
+    # observation row, invalid slots masked via obs_valid
+    cam_idx = torch.arange(K_, device=dev).repeat_interleave(T_)
+    pid_idx = torch.where(obs_ok, ring.pid.long(),
+                          torch.zeros_like(pid_safe)).reshape(-1)
+    obs_n = epipolar.normalize_by_K(Kf, ring.uv.reshape(-1, 2).to(f32))
+    point_valid = torch.arange(P, device=dev) < n_pts
+    X = X.to(f32)
+    cost0 = cost = None
+    for r in range(rounds):
+        if do_retri0 if r == 0 else do_retri_later:
+            X3, za, zb = triangulate.triangulate_dlt(
+                R_wc[ka], t_wc[ka], xa, R_wc[kb], t_wc[kb], xb)
+            good = (ok2 & (za > 1e-6) & (zb > 1e-6)
+                    & torch.isfinite(X3).all(-1))
+            X = torch.where(good[:, None], X3.to(f32), X)
+        if enable_refine:
+            prob = ba_ops.BAProblem(
+                R_wc=R_wc.to(f32), t_wc=t_wc.to(f32), X=X,
+                cam_idx=cam_idx, pid_idx=pid_idx, obs=obs_n,
+                obs_valid=obs_ok.reshape(-1), point_valid=point_valid)
+            X, info = ba_ops.refine_points(
+                prob, iters=iters, lambda0=lambda0, huber_delta=huber_delta,
+                max_obs_per_point=K_)  # ring: one obs per keyframe row
+            if r == 0:
+                cost0 = info["cost0"]
+            cost = info["cost"]
+    return X, cost0, cost
 
 
 # ---------------------------------------------------------------------------
@@ -687,9 +989,12 @@ def _next_pow2(n: int, lo: int = 8) -> int:
 class ScanSfM:
     """Host orchestrator for the device-resident pipeline.
 
-    Per chunk of frames: one ``run_chunk`` call + one metrics pull. At the
-    end: drain the ring and export.  Same external surface as the JAX
-    twin (kfs / edges / metrics / export) so eval tooling is shared.
+    Per chunk of frames: one ``run_chunk`` call + one metrics pull.
+    Between chunks: loop-closure edges (verified in the chunk, or by the
+    host with ``loop.device_verify`` off) and the pose graph.  At the end:
+    drain the ring, re-triangulate and polish the map, export.  Same
+    external surface as the JAX twin (kfs / edges / metrics / export) so
+    eval tooling is shared.
 
     ``device`` defaults to ``"cuda"``; without a card the constructor
     raises (pass ``device="cpu"`` to run the plain versions).
@@ -700,21 +1005,20 @@ class ScanSfM:
                  p_cap: int = 16384, p_ba: int = 1024, gt_records=None,
                  device="cuda"):
         self.device = resolve(device)
-        waits = []
-        if cfg.loop.enabled:
-            waits.append("cfg.loop.enabled (loop closure + pose graph)")
-        if cfg.ba.global_iters > 0:
-            waits.append("cfg.ba.global_iters > 0 (final structure "
-                         "refinement, refine_points)")
-        if cfg.use_gt_scale:
-            waits.append("cfg.use_gt_scale (GT edge scaling + finalize "
-                         "re-anchor)")
-        if waits:
+        if cfg.loop.enabled and cfg.loop.method == "orb":
             raise NotImplementedError(
-                "sfm_tpu_torch.ScanSfM does not support " + "; ".join(waits)
-                + " yet: see ROADMAP.md, Queue 1, 'loop closure, pose "
-                "graph, finalize refinement'. Set loop.enabled=False, "
-                "ba.global_iters=0, use_gt_scale=False.")
+                "sfm_tpu_torch.ScanSfM does not support loop.method='orb' "
+                "(ORB loop candidates) yet: see ROADMAP.md, Queue 1. Use "
+                "loop.method='descriptor'.")
+        self._gt_C = None
+        if cfg.use_gt_scale:
+            if gt_records is None:
+                raise ValueError(
+                    "cfg.use_gt_scale requires gt_records (the dataset's "
+                    "Middlebury records with GT centers, ref py:888-898)")
+            self._gt_C = to_device(
+                np.stack([r.center for r in gt_records]).astype(np.float32),
+                self.device)
         self.K = np.asarray(K, np.float64)
         self._Kt = to_device(self.K.astype(np.float32), self.device)
         self.cfg = cfg
@@ -725,12 +1029,20 @@ class ScanSfM:
         self.carry: ScanCarry | None = None
         self.metrics: list[dict] = []
         self.loop_edges: list[Edge] = []
+        # keyframe images (frame_idx -> u8 gray) for the host-driven loop
+        # verification; the device-verified path keeps them in the ring
+        self._host_verify = cfg.loop.enabled and not cfg.loop.device_verify
+        self._images: dict[int, np.ndarray] = {}
         self._names: list[str] = []
-        self._pending: list[tuple[int, str, torch.Tensor]] = []
+        self._pending: list[tuple[int, str, np.ndarray, torch.Tensor]] = []
         self.kfs: list[Keyframe] = []
         self.edges: list[Edge] = []
         self._X = np.zeros((0, 3))
         self._ring_pid = None
+        self._pg_ran = False
+        self.pg_solves = 0      # pose-graph solves pushed back so far
+        self.loop_verifications = 0  # keyframes whose loop verification ran
+        self.refine_rounds = 1  # re-triangulate/refine cycles at finalize
 
     # -- streaming interface -------------------------------------------
     def process(self, frame_idx: int, img_name: str,
@@ -740,6 +1052,8 @@ class ScanSfM:
         dev_img = torch.from_numpy(np.array(gray_u8)).to(
             self.device, non_blocking=True)
         if self.carry is None:
+            if self._host_verify:
+                self._images[int(frame_idx)] = np.asarray(gray_u8)
             with torch.no_grad():
                 self.carry = bootstrap_carry(
                     self.cfg, self.kf_cap, self.p_cap, dev_img,
@@ -748,7 +1062,7 @@ class ScanSfM:
                 {"frame": frame_idx, "image": img_name, "keyframe": True,
                  "tracks": int(self.cfg.klt.max_tracks)})
             return
-        self._pending.append((frame_idx, img_name, dev_img))
+        self._pending.append((frame_idx, img_name, gray_u8, dev_img))
         if len(self._pending) >= self.chunk:
             self._flush()
 
@@ -759,18 +1073,21 @@ class ScanSfM:
         idxs = np.zeros((C,), np.int32)
         fvalid = np.zeros((C,), bool)
         imgs = []
-        for k, (idx, _, d) in enumerate(self._pending):
+        for k, (idx, _, _, d) in enumerate(self._pending):
             imgs.append(d)
             idxs[k] = idx
             fvalid[k] = True
         imgs.extend([imgs[0]] * (C - len(imgs)))  # tail chunk: padding
-        names = {idx: name for idx, name, _ in self._pending}
+        names = {idx: name for idx, name, _, _ in self._pending}
+        pend_imgs = {idx: g for idx, _, g, _ in self._pending}
         self._pending = []
         with torch.no_grad():
             self.carry, ys = run_chunk(
                 self.cfg, self.p_ba, self._Kt, self.carry, imgs, idxs,
-                fvalid)
+                fvalid, gt_C=self._gt_C)
         ys = ys.cpu().numpy().astype(np.float64)  # the chunk's one pull
+        self.loop_verifications += int(
+            ((ys[:, Y_VALID] > 0.5) & (ys[:, Y_LV_OK] > -0.5)).sum())
         for row in ys:
             if row[Y_VALID] < 0.5:
                 continue
@@ -789,6 +1106,8 @@ class ScanSfM:
                 met["loop_cand"] = int(row[Y_LOOP_K])
                 met["ba_cost0"] = float(row[Y_BA0])
                 met["ba_cost"] = float(row[Y_BA1])
+                if self._host_verify and fi in pend_imgs:
+                    self._images[fi] = np.asarray(pend_imgs[fi])
             self.metrics.append(met)
             log.info(
                 "frame %d | kf=%s | inliers=%d | parallax=%.2f | "
@@ -796,6 +1115,360 @@ class ScanSfM:
                 fi, met["keyframe"], met["inliers"], met["parallax"],
                 met["tracks"], met["map_points"],
             )
+        with torch.no_grad():
+            self._check_loops(ys)
+
+    # -- loop closure + pose graph (between chunks) ---------------------
+    @staticmethod
+    def loop_candidate_rows(ys: np.ndarray, lcfg) -> np.ndarray:
+        """Row mask of above-threshold loop candidates in a pulled
+        metrics array — THE candidate predicate, shared by the pre-gate
+        and `gate_loop_candidates` so the two cannot drift apart."""
+        return ((ys[:, Y_VALID] > 0.5) & (ys[:, Y_KF] > 0.5)
+                & (ys[:, Y_LOOP_S] > lcfg.score_thresh))
+
+    @staticmethod
+    def gate_loop_candidates(ys: np.ndarray, rp: dict,
+                             lcfg) -> list[tuple[int, int, int]]:
+        """Host-side (numpy-only) candidate gate: from the chunk's pulled
+        metrics rows and an unpacked ring-pose dict, return the top-k
+        ``(cand_kf, cur_kf, cur_frame)`` pairs worth a verification.
+
+        Gates, in order: descriptor score threshold; top-k by score (the
+        32x32 descriptor's margin between a true revisit and texture
+        noise can be thin, so a single best-of-chunk row could starve the
+        true loop behind a false candidate); dedup of repeated (cand, cur)
+        pairs; and a spatial-consistency pre-gate — a true revisit's
+        estimated centers are close (odometry drift is a small fraction of
+        the trajectory) while descriptor false positives land anywhere on
+        the ring."""
+        rows = ys[ScanSfM.loop_candidate_rows(ys, lcfg)]
+        if len(rows) == 0:
+            return []
+        order = np.argsort(-rows[:, Y_LOOP_S])[: max(lcfg.top_k, 1)]
+        frames = rp["frame"]
+        kvalid = rp["kvalid"]
+        n_kf = rp["n_kf"]
+        cs = rp["t_cw"][:n_kf]
+        odo = np.linalg.norm(np.diff(cs, axis=0), axis=1)
+        extent = float(np.linalg.norm(cs - cs.mean(0), axis=1).max()) \
+            if n_kf else 0.0
+        b_gate = max(5.0 * (float(np.median(odo)) if len(odo) else 1.0),
+                     0.25 * extent)
+        tried: set[tuple[int, int]] = set()
+        cands: list[tuple[int, int, int]] = []
+        for row in rows[order]:
+            cand_kf = int(row[Y_LOOP_K])
+            cur_frame = int(row[Y_FRAME])
+            cur_kf_arr = np.nonzero(kvalid & (frames == cur_frame))[0]
+            if len(cur_kf_arr) == 0 or not kvalid[cand_kf]:
+                continue
+            cur_kf = int(cur_kf_arr[0])
+            if (cand_kf, cur_kf) in tried:
+                continue
+            tried.add((cand_kf, cur_kf))
+            if (cand_kf < n_kf and cur_kf < n_kf
+                    and np.linalg.norm(cs[cur_kf] - cs[cand_kf]) > b_gate):
+                continue
+            cands.append((cand_kf, cur_kf, cur_frame))
+        return cands
+
+    def _ring_poses(self) -> dict:
+        return _unpack_ring_poses(_ring_pose_stage(self.carry),
+                                  self.carry.ring.pid.shape[0])
+
+    def _check_loops(self, ys: np.ndarray) -> None:
+        """Loop closure after a chunk: collect the edges the chunk
+        verified on the device (``loop.device_verify``), or verify the
+        chunk's gated candidates here (ref cpp:1833-1859), then run the
+        pose graph and push the corrected poses back into the carry."""
+        lcfg = self.cfg.loop
+        if not lcfg.enabled:
+            return
+        if lcfg.device_verify:
+            self._collect_device_loops(ys)
+            return
+        # cheap ys-only pre-gate: most chunks have no above-threshold
+        # candidate — skip the ring-pose pull entirely
+        if not self.loop_candidate_rows(ys, lcfg).any():
+            return
+        rp = self._ring_poses()
+        cands = self.gate_loop_candidates(ys, rp, lcfg)
+        if cands and self._verify_candidates(cands, rp):
+            self._pose_graph_pushback(pr=rp)
+
+    def _verify_candidates(self, cands: list[tuple[int, int, int]],
+                           rp: dict) -> bool:
+        """Run the loop verification on already-gated ``(cand_kf, cur_kf,
+        cur_frame)`` pairs, appending surviving ``Edge``s.  Returns True
+        if any edge was added (the caller runs the pose-graph pushback)."""
+        cs = rp["t_cw"][: rp["n_kf"]]
+        frames = rp["frame"]
+        found = False
+        for cand_kf, cur_kf, cur_frame in cands:
+            old_img = self._images.get(int(frames[cand_kf]))
+            new_img = self._images.get(cur_frame)
+            if old_img is None or new_img is None:
+                continue  # image not retained (non-keyframe)
+            edge = self._verify_loop(cand_kf, cur_kf, old_img, new_img, cs)
+            if edge is None:
+                continue
+            self.loop_edges.append(edge)
+            found = True
+            self._mark_loop(cur_frame, cand_kf, cur_kf)
+            log.info("loop closure %d -> %d (inliers %d)", cand_kf, cur_kf,
+                     edge.inliers)
+        return found
+
+    def _mark_loop(self, frame: int, i: int, j: int) -> None:
+        for met in reversed(self.metrics):
+            if met.get("frame") == frame:
+                met["loop"] = (i, j)
+                break
+
+    def _collect_device_loops(self, ys: np.ndarray) -> None:
+        """Build ``Edge``s from the loop-verify packs of the chunk's
+        metrics rows (the gates and the LK+PnP verification ran per
+        keyframe in ``_keyframe_branch``) and run the pose-graph pushback
+        if anything was found.  A candidate whose old keyframe has fewer
+        than 30 mapped tracks is not verified on the device (degenerate
+        map segment) and is logged and skipped."""
+        lcfg = self.cfg.loop
+        lw = self.cfg.pose_graph.loop_weight
+        rows = ys[(ys[:, Y_VALID] > 0.5) & (ys[:, Y_KF] > 0.5)]
+        hits = []
+        for row in rows:
+            if (row[Y_LOOP_S] > lcfg.score_thresh
+                    and row[Y_LV_OK] < -0.5 and row[Y_LOOP_K] >= 0):
+                log.debug("loop candidate %d->%d not verified on device "
+                          "(gate fail or <30 mapped obs)",
+                          int(row[Y_LOOP_K]), int(row[Y_KFID]))
+            if row[Y_LV_OK] > 0.5:
+                hits.append(row)
+        if not hits:
+            return
+        # one packed pose pull for the dir-mode translation weight
+        rp = self._ring_poses()
+        cs = rp["t_cw"][: rp["n_kf"]]
+        odo = np.linalg.norm(np.diff(cs, axis=0), axis=1)
+        b_ref = float(np.median(odo)) if len(odo) else 1.0
+        for row in hits:
+            i, j = int(row[Y_LV_I]), int(row[Y_KFID])
+            R_ji = np.asarray(row[Y_LV_R:Y_LV_R + 9],
+                              np.float64).reshape(3, 3)
+            t_ji = np.asarray(row[Y_LV_T:Y_LV_T + 3], np.float64)
+            w_tr = lw
+            if self.cfg.translation_mode != TranslationMode.FULL:
+                b = float(np.linalg.norm(t_ji))
+                w_tr = lw * min(1.0, b / max(b_ref, 1e-12))
+            self.loop_edges.append(Edge(
+                i=i, j=j, R_ji=R_ji, t_ji=t_ji,
+                inliers=int(row[Y_LV_INL]), is_loop=True,
+                w_rot=lw, w_trans=w_tr, s_rel=float(row[Y_LV_SREL])))
+            self._mark_loop(int(row[Y_FRAME]), i, j)
+            log.info("loop closure (device) %d -> %d (inliers %d, "
+                     "tracked %d)", i, j, int(row[Y_LV_INL]),
+                     int(row[Y_LV_NTR]))
+        self._pose_graph_pushback(pr=rp)
+
+    def _pnp_edge_from_pack(self, pack: np.ndarray, cand_kf: int,
+                            cur_kf: int, cs: np.ndarray):
+        """The loop ``Edge`` from a pulled `_pnp_loop_edge` pack
+        ([R_ji (9), t_ji (3), inliers, n_tracked, s_rel, ...]); None when
+        the PnP verification rejects the candidate."""
+        lcfg = self.cfg.loop
+        lw = self.cfg.pose_graph.loop_weight
+        R_ji = pack[:9].reshape(3, 3)
+        t_ji = pack[9:12]
+        inliers = int(pack[12])
+        n_tracked = int(pack[13])
+        s_rel = float(pack[14])
+        if n_tracked < min(lcfg.min_tracked, 30) \
+                or inliers < lcfg.min_inliers:
+            log.info("loop candidate %d->%d rejected "
+                     "(pnp tracked=%d inliers=%d)",
+                     cand_kf, cur_kf, n_tracked, inliers)
+            return None
+        w_tr = lw
+        if self.cfg.translation_mode != TranslationMode.FULL:
+            # dir-mode residual compares unit vectors: still gate the
+            # translation by the (now metric, PnP-measured) baseline — a
+            # zero-length translation has no direction
+            odo = np.linalg.norm(np.diff(cs, axis=0), axis=1)
+            b_ref = float(np.median(odo)) if len(odo) else 1.0
+            w_tr = lw * min(1.0, float(np.linalg.norm(t_ji))
+                            / max(b_ref, 1e-12))
+        return Edge(i=cand_kf, j=cur_kf, R_ji=R_ji, t_ji=t_ji,
+                    inliers=inliers, is_loop=True,
+                    w_rot=lw, w_trans=w_tr, s_rel=s_rel)
+
+    def _verify_loop(self, cand_kf: int, cur_kf: int, old_img, new_img,
+                     cs: np.ndarray):
+        """Verify a loop candidate and build its pose-graph edge.
+
+        Primary path: PnP against the old keyframe's mapped tracks
+        (``_pnp_loop_edge``) — metric and reliable at any baseline.
+        Fallback (old keyframe has fewer than 30 mapped tracks): the
+        reference-style corner re-detect + LK + E-RANSAC
+        (``_loop_verify_stage``), its edge weight gated by the baseline
+        since E degenerates as the baseline vanishes."""
+        kcfg = self.cfg.klt
+        ring = self.carry.ring
+        lw = self.cfg.pose_graph.loop_weight
+        old_t = torch.from_numpy(np.array(old_img)).to(self.device)
+        new_t = torch.from_numpy(np.array(new_img)).to(self.device)
+        # one scalar pull decides the branch
+        n_mapped = int(torch.sum(ring.tvalid[cand_kf]
+                                 & (ring.pid[cand_kf] >= 0)))
+        if n_mapped >= 30:
+            fx = float(self.K[0, 0])
+            pack = _pnp_loop_edge(
+                kcfg, self._Kt, ring, self.carry.X,
+                _build_pyr(old_t, kcfg.pyr_levels),
+                _build_pyr(new_t, kcfg.pyr_levels), cand_kf, cur_kf,
+                self.cfg.ba.huber_delta / fx)
+            return self._pnp_edge_from_pack(
+                pack.cpu().numpy().astype(np.float64), cand_kf, cur_kf, cs)
+        # ---- fallback: reference-style E-RANSAC verification ----------
+        R, t, inliers, n_tracked = self._verify_pair(old_t, new_t)
+        if R is None:
+            log.info("loop candidate %d->%d rejected (tracked=%d)",
+                     cand_kf, cur_kf, n_tracked)
+            return None
+        if self.cfg.translation_mode != TranslationMode.FULL:
+            n = np.linalg.norm(t)
+            if n > 1e-12:
+                t = t / n
+        # E = [t]x R vanishes with the baseline: gate BOTH rotation and
+        # translation weights by the estimated baseline so a near-revisit
+        # edge (direction AND rotation unobservable) self-silences
+        odo = np.linalg.norm(np.diff(cs, axis=0), axis=1)
+        b_ref = float(np.median(odo)) if len(odo) else 1.0
+        b = float(np.linalg.norm(cs[cur_kf] - cs[cand_kf]))
+        w_loop = lw * min(1.0, b / max(b_ref, 1e-12))
+        return Edge(i=cand_kf, j=cur_kf, R_ji=R, t_ji=t, inliers=inliers,
+                    is_loop=True, w_rot=w_loop, w_trans=w_loop)
+
+    def _verify_pair(self, old_img, new_img):
+        """E-RANSAC verification of an image pair.  Returns (R, t,
+        inliers, n_tracked) with R None when the pair is rejected."""
+        lcfg = self.cfg.loop
+        kcfg = self.cfg.klt
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.cfg.ransac.seed + 7919)
+        pack = _loop_verify_stage(
+            gen, self._Kt, old_img, new_img, levels=kcfg.pyr_levels,
+            lk_iters=kcfg.iters, radius=kcfg.win_radius,
+            fb_thresh=kcfg.fb_thresh,
+            cell=max(int(kcfg.min_distance), 2), quality=kcfg.quality,
+            num_hypotheses=lcfg.ransac_iters,
+            sampson_thresh=lcfg.ransac_thresh,
+            min_inliers=lcfg.min_inliers,
+        ).cpu().numpy().astype(np.float64)  # one pull
+        ok, inliers, n_tracked = pack[12] > 0.5, int(pack[13]), int(pack[14])
+        if (n_tracked < lcfg.min_tracked or not ok
+                or inliers < lcfg.min_inliers):
+            return None, None, inliers, n_tracked
+        return pack[:9].reshape(3, 3), pack[9:12], inliers, n_tracked
+
+    def _drain_edges(self, drained: dict):
+        """Odometry edges from a drain dict or a ring-pose dict (both
+        carry the e_* fields), plus the loop edges."""
+        n_kf = (int(drained["counts"][0]) if "counts" in drained
+                else drained["n_kf"])
+        e_R, e_t = drained["e_Rji"], drained["e_tji"]
+        e_inl, e_val = drained["e_inl"], drained["e_valid"]
+        edges = [
+            Edge(i=k - 1, j=k, R_ji=e_R[k], t_ji=e_t[k],
+                 inliers=int(e_inl[k]), is_loop=False)
+            for k in range(1, n_kf) if e_val[k]
+        ]
+        return edges + list(self.loop_edges)
+
+    def _pose_graph_pushback(self, pr: dict | None = None) -> None:
+        """Pose graph over the ring poses + edges; the corrected poses are
+        written back into the device carry (ref py:990-1001 /
+        cpp:1862).  ``pr``: a pre-pulled ring-pose dict (verification
+        does not move poses, so the gate's pull is still exact here)."""
+        if pr is None:
+            pr = self._ring_poses()
+        solved = self._pose_graph_solve(pr)
+        if solved is None:
+            return
+        ring_R, ring_t = solved
+        n_kf = pr["n_kf"]
+        c = self.carry
+        c.ring.R_cw.copy_(torch.from_numpy(ring_R))
+        c.ring.t_cw.copy_(torch.from_numpy(ring_t))
+        c.R_cw = to_device(ring_R[n_kf - 1], self.device)
+        c.t_cw = to_device(ring_t[n_kf - 1], self.device)
+        self._pg_ran = True
+        self.pg_solves += 1
+
+    def _pose_graph_solve(self, pr: dict):
+        """Solve the pose graph from a pre-pulled ring-pose dict, in
+        float64 on the device.  Returns the full-ring corrected
+        ``(ring_R, ring_t)`` float32 arrays (rows past n_kf unchanged), or
+        None when the graph is degenerate.  Does not touch the carry."""
+        pcfg = self.cfg.pose_graph
+        n_kf = pr["n_kf"]
+        edges = self._drain_edges(drained=pr)
+        if n_kf < 3 or len(edges) < 2:
+            return None
+        Np = _next_pow2(n_kf, lo=8)
+        Ep = _next_pow2(len(edges), lo=8)
+        R_all = pr["R_cw"]
+        C_all = pr["t_cw"]
+        R_cw = np.concatenate(
+            [R_all[:n_kf], np.tile(np.eye(3), (Np - n_kf, 1, 1))])
+        C = np.concatenate([C_all[:n_kf], np.zeros((Np - n_kf, 3))])
+        e_i = np.zeros(Ep, np.int64)
+        e_j = np.zeros(Ep, np.int64)
+        R_meas = np.tile(np.eye(3), (Ep, 1, 1))
+        t_meas = np.zeros((Ep, 3))
+        t_meas[:, 2] = 1.0
+        w_rot = np.zeros(Ep)
+        w_trans = np.zeros(Ep)
+        valid = np.zeros(Ep, bool)
+        t_full = np.zeros(Ep, bool)
+        s_meas = np.ones(Ep)
+        for k, e in enumerate(edges):
+            e_i[k], e_j[k] = e.i, e.j
+            if not e.is_loop and e.j == e.i + 1:
+                # refresh odometry constraints from the BA-refined ring
+                # poses (metric, t_full) so the solve distributes loop
+                # error instead of dragging refined poses toward raw
+                # pre-BA measurements — and so dir-mode centers cannot
+                # slide along fixed directions at zero cost
+                R_meas[k] = R_all[e.j].T @ R_all[e.i]
+                t_meas[k] = R_all[e.j].T @ (C_all[e.i] - C_all[e.j])
+                t_full[k] = True
+            else:
+                R_meas[k], t_meas[k] = e.R_ji, e.t_ji
+            w_rot[k] = pcfg.w_rot * e.w_rot
+            w_trans[k] = pcfg.w_trans * e.w_trans
+            valid[k] = True
+            s_meas[k] = e.s_rel
+        put = lambda a: to_device(a, self.device)  # noqa: E731
+        prob = pg_ops.PoseGraphProblem(
+            R_cw=put(R_cw), C=put(C), e_i=put(e_i), e_j=put(e_j),
+            R_meas=put(R_meas), t_meas=put(t_meas), w_rot=put(w_rot),
+            w_trans=put(w_trans), valid=put(valid), t_full=put(t_full))
+        mode = self.cfg.translation_mode.value
+        if pcfg.mode == "centers":
+            R_new, C_new, _ = pg_ops.optimize_centers(prob)
+        elif pcfg.mode == "sim3":
+            R_new, C_new, _s, _ = pg_ops.optimize_sim3(
+                prob, s_meas=put(s_meas), mode=mode, iters=pcfg.iters,
+                lambda0=pcfg.lambda0)
+        else:
+            R_new, C_new, _ = pg_ops.optimize_se3(
+                prob, mode=mode, iters=pcfg.iters, lambda0=pcfg.lambda0)
+        ring_R = R_all.astype(np.float32).copy()
+        ring_t = C_all.astype(np.float32).copy()
+        ring_R[:n_kf] = R_new.cpu().numpy().astype(np.float32)[:n_kf]
+        ring_t[:n_kf] = C_new.cpu().numpy().astype(np.float32)[:n_kf]
+        return ring_R, ring_t
 
     # -- finalize + export ---------------------------------------------
     def _drain(self) -> dict:
@@ -815,41 +1488,121 @@ class ScanSfM:
         d["counts"] = np.array([int(c.kf_count), int(c.n_pts)], np.float64)
         return d
 
-    def _drain_edges(self, drained: dict):
-        """Odometry edges from a drain dict (plus any loop edges)."""
-        n_kf = int(drained["counts"][0])
-        e_R, e_t = drained["e_Rji"], drained["e_tji"]
-        e_inl, e_val = drained["e_inl"], drained["e_valid"]
-        edges = [
-            Edge(i=k - 1, j=k, R_ji=e_R[k], t_ji=e_t[k],
-                 inliers=int(e_inl[k]), is_loop=False)
-            for k in range(1, n_kf) if e_val[k]
-        ]
-        return edges + list(self.loop_edges)
+    def finalize(self, drained: dict | None = None,
+                 refine: bool = True) -> None:
+        """Flush, drain the device state, re-triangulate and polish the
+        map, and build the host-side keyframe/edge views.
 
-    def finalize(self) -> None:
-        """Flush, drain the device state, and build the host-side
-        keyframe/edge views.  (The JAX twin's re-triangulation and
-        structure-only refinement rounds run only after a pose-graph
-        correction or with ``ba.global_iters > 0``: neither is part of
-        this slice.)"""
+        ``drained``: optional pre-pulled drain dict (the layout of
+        ``_drain``); callers passing it must have no pending frames.  The
+        refinement rounds read the device ring in place, so they run only
+        without ``drained``; with it, a round that would have to run
+        raises (the host twins of those rounds are not ported yet, see
+        ROADMAP.md).  ``refine=False`` skips the rounds."""
+        assert drained is None or not self._pending, \
+            "finalize(drained=...) with pending frames"
         self._flush()
-        if self.carry is None:
-            raise RuntimeError("finalize() before any frame was processed")
-        d = self._drain()
+        if drained is None:
+            if self.carry is None:
+                raise RuntimeError(
+                    "finalize() before any frame was processed")
+            d = self._drain()
+        else:
+            d = drained
         n_kf = int(d["counts"][0])
         n_pts = int(d["counts"][1])
+        R_cw = d["R_cw"][:n_kf]
+        t_cw = d["t_cw"][:n_kf]
         frames = d["frame"][:n_kf]
+        uv = d["uv"][:n_kf]
+        ids = d["ids"][:n_kf]
+        tvalid = d["tvalid"][:n_kf]
         pid = d["pid"][:n_kf]
+        desc = d["desc"][:n_kf]
+        X = d["X"][:n_pts]
+
+        # Final refinement is STRUCTURE-ONLY: after a pose-graph
+        # correction the map is triangulated against stale poses, so
+        # re-triangulate first-vs-last with the corrected poses, then
+        # polish points with frozen-pose LM (ops/ba.refine_points).  Full
+        # pose+point BA here bends the monocular gauge: the trajectory is
+        # already optimal from the window BA + PnP + pose graph.
+        if refine and self.refine_rounds > 0:
+            m = int((tvalid & (pid >= 0) & (pid < n_pts)).sum())
+            do0 = self._pg_ran and n_pts >= 10
+            later = n_pts >= 10
+            en_ref = (self.cfg.ba.global_iters > 0 and n_kf >= 3
+                      and n_pts >= 10 and m >= 30)
+            if do0 or (later and self.refine_rounds > 1) or en_ref:
+                if drained is not None:
+                    raise NotImplementedError(
+                        "finalize(drained=..., refine=True) needs the host "
+                        "twins _retriangulate/_refine_structure, not "
+                        "ported yet: see ROADMAP.md, Queue 1")
+                fx = float(self.K[0, 0])
+                with torch.no_grad():
+                    Xd, cost0, cost = _finalize_refine_core(
+                        self._Kt, self.carry.ring, self.carry.X, n_pts,
+                        do0, later, en_ref, iters=self.cfg.ba.global_iters,
+                        rounds=self.refine_rounds,
+                        lambda0=self.cfg.ba.lambda0,
+                        huber_delta=self.cfg.ba.huber_delta / fx)
+                X = Xd.cpu().numpy().astype(np.float64)[:n_pts]
+                if en_ref:
+                    log.info("structure refine: cost %.3e -> %.3e "
+                             "(%d kfs, %d pts, %d obs)", float(cost0),
+                             float(cost), n_kf, n_pts, m)
+
+        # gt-scale re-anchor: the window BA fixes only its oldest camera,
+        # so the monocular scale gauge drifts NON-UNIFORMLY over a long
+        # run even when every keyframe EDGE was created at the GT
+        # baseline.  Re-apply the same per-edge GT information once more:
+        # re-integrate the trajectory keeping the optimized edge
+        # DIRECTIONS and rotations but setting each consecutive-keyframe
+        # baseline to its GT length (the reference's scale_translation
+        # semantic, ref py:888-898, applied to the final geometry).  The
+        # map is rescaled by the median edge ratio about the first
+        # keyframe (a global approximation; the metric contract of
+        # use_gt_scale is the trajectory).
+        s_edge = None
+        s_anchor = 1.0
+        if self.cfg.use_gt_scale and self._gt_C is not None and n_kf >= 2:
+            gt = self._gt_C.cpu().numpy().astype(np.float64)[
+                np.asarray(frames[:n_kf], int)]
+            # ring poses are cam->world: t_cw IS the camera center
+            C = np.asarray(t_cw[:n_kf], np.float64)
+            dC = np.diff(C, axis=0)
+            eb = np.linalg.norm(dC, axis=1)
+            gb = np.linalg.norm(np.diff(gt, axis=0), axis=1)
+            ok = eb > 1e-12
+            if ok.any():
+                s_edge = np.where(ok, gb / np.where(ok, eb, 1.0), 1.0)
+                s_anchor = float(np.median(s_edge[ok]))
+                t_cw = np.concatenate(
+                    [C[:1], C[0] + np.cumsum(s_edge[:, None] * dC, 0)])
+                if len(X):
+                    X = C[0] + s_anchor * (X - C[0])
+
         self.kfs = [
             Keyframe(kf_id=k, frame_idx=int(frames[k]),
                      img_name=self._names[int(frames[k])],
-                     R_cw=d["R_cw"][k], t_cw=d["t_cw"][k], ids=d["ids"][k],
-                     uv=d["uv"][k], valid=d["tvalid"][k], desc=d["desc"][k])
+                     R_cw=R_cw[k], t_cw=t_cw[k], ids=ids[k], uv=uv[k],
+                     valid=tvalid[k], desc=desc[k])
             for k in range(n_kf)
         ]
         self.edges = self._drain_edges(d)
-        self._X = d["X"][:n_pts]
+        if s_edge is not None:
+            # odometry edge (k-1 -> k) gets ITS re-integrated edge scale;
+            # loop edges (arbitrary i -> j) get the median
+            self.edges = [
+                dataclasses.replace(
+                    e, t_ji=e.t_ji * (
+                        s_edge[e.j - 1]
+                        if not e.is_loop and 1 <= e.j <= len(s_edge)
+                        else s_anchor))
+                for e in self.edges
+            ]
+        self._X = X
         self._ring_pid = pid  # (n_kf, T) observation matrix, for tooling
 
     @property

@@ -12,7 +12,8 @@ the point blocks are eliminated with a closed-form 3x3 inverse; the
 reduced camera system solves by Cholesky; the LM loop accepts or rejects
 each step.  Everything is fixed-shape: (F) window poses, (P) points, (M)
 padded observations.  Only window-sized problems (F*P <= 8192) are
-supported so far.
+supported so far by ``bundle_adjust``; ``refine_points`` (frozen poses,
+the final structure polish) takes any size.
 
 Conventions: poses are world→camera (R_wc, t_wc); observations are
 K-normalized image coords; update is left-multiplicative SE(3):
@@ -56,6 +57,27 @@ def _camera_points(p: BAProblem):
     Xc = [Rg[:, i, 0] * Xg[:, 0] + Rg[:, i, 1] * Xg[:, 1]
           + Rg[:, i, 2] * Xg[:, 2] + tg[:, i] for i in range(3)]
     return Xc, Rg, cam, pid
+
+
+def _project_residuals(R_wc, t_wc, X, cam_idx, pid_idx, obs, obs_valid):
+    """Residuals + camera-frame points for all observations.
+
+    Returns (r (M,2), Xc (M,3), z_ok (M,))."""
+    cam, pid = cam_idx.long(), pid_idx.long()
+    Xc = torch.einsum("mij,mj->mi", R_wc[cam], X[pid]) + t_wc[cam]
+    z = Xc[:, 2]
+    z_ok = obs_valid & (z > 1e-6)
+    z_safe = torch.where(z.abs() < 1e-6, torch.full_like(z, 1e-6), z)
+    r = Xc[:, :2] / z_safe[:, None] - obs
+    return r, Xc, z_ok
+
+
+def _huber_weight(r, delta):
+    """sqrt-IRLS weight per obs: min(1, delta/‖r‖) (ref cpp:843-846);
+    residuals beyond ``_CUTOFF*delta`` are gross outliers and get 0."""
+    n = torch.linalg.vector_norm(r, dim=-1)
+    w = torch.sqrt(torch.clamp(delta / torch.clamp(n, min=1e-12), max=1.0))
+    return torch.where(n > _CUTOFF * delta, torch.zeros_like(w), w)
 
 
 def ba_cost_soa(p: BAProblem, huber_delta: float) -> torch.Tensor:
@@ -273,3 +295,112 @@ def bundle_adjust(
             "cost_hist": torch.stack(hist) if hist else cost0[None][:0],
             "lambda": lam}
     return R_wc, t_wc, X, info
+
+
+def _point_gather_plan(pid_idx, obs_valid, P: int, cap: int):
+    """Scatter-free per-point reduction plan for a FIXED observation
+    table: G[p, r] = index of point p's r-th valid observation (M when
+    absent).  One stable argsort and one integer scatter here, then every
+    LM iteration reduces with fixed-index gathers only: no float
+    scatter-add, so the sums come out in one order on every run.  ``cap``
+    bounds observations per point (the ring gives one per keyframe, so
+    kf_cap is exact); a point with more raises rather than being
+    under-assembled."""
+    M = pid_idx.shape[0]
+    dev = pid_idx.device
+    seg = torch.where(obs_valid, pid_idx.long(),
+                      torch.full_like(pid_idx.long(), P))
+    order = torch.argsort(seg, stable=True)
+    sorted_ids = seg[order]
+    starts = torch.searchsorted(sorted_ids,
+                                torch.arange(P, device=dev))
+    rank = (torch.arange(M, device=dev)
+            - starts[torch.clamp(sorted_ids, 0, P - 1)])
+    real = sorted_ids < P
+    overflow = int(torch.sum(real & (rank >= cap)))  # one host sync
+    if overflow:
+        raise FloatingPointError(
+            f"_point_gather_plan: {overflow} observations exceed "
+            f"max_obs_per_point={cap} and would be dropped")
+    ok = real & (rank < cap)
+    G = torch.full((P + 1, cap), M, dtype=torch.long, device=dev)
+    G[torch.where(ok, sorted_ids, torch.full_like(sorted_ids, P)),
+      torch.clamp(rank, 0, cap - 1)] = order       # row P: dump row
+    return G[:P]
+
+
+def _gathered_segment_sum(vals, G):
+    """(M, ...) values -> (P, ...) per-point sums via the plan from
+    ``_point_gather_plan`` (row M of the padded values is zero)."""
+    pad = torch.cat([vals, vals.new_zeros((1, *vals.shape[1:]))])
+    return pad[G].sum(dim=1)
+
+
+def refine_points(p: BAProblem, iters: int = 5, lambda0: float = 1e-3,
+                  huber_delta: float = 2e-3,
+                  max_obs_per_point: int | None = None):
+    """Structure-only LM: polish the map points against FROZEN poses.
+
+    Monocular full-problem BA can lower reprojection error while bending
+    the (weakly constrained) trajectory gauge, so the final refinement
+    freezes poses and solves the independent per-point 3x3 GN systems only
+    (the dual of the reference's cpp window BA, which updates poses and
+    freezes points, cpp:1059-1060).  Returns (X, info).
+
+    The per-point Hessian assembly always runs through the gather plan of
+    ``_point_gather_plan`` with ``max_obs_per_point`` rows per point (the
+    keyframe ring gives one observation per keyframe, so kf_cap is
+    tight); without it the bound is the largest count of this table (one
+    host pull)."""
+    dtype, dev = p.X.dtype, p.X.device
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    P_ = p.X.shape[0]
+    cam, pid = p.cam_idx.long(), p.pid_idx.long()
+    if max_obs_per_point is None:
+        cnt = torch.bincount(pid[p.obs_valid], minlength=P_)
+        max_obs_per_point = max(int(cnt.max()) if len(cnt) else 0, 1)
+    plan = _point_gather_plan(pid, p.obs_valid, P_, max_obs_per_point)
+    R_obs = p.R_wc[cam]
+    pv_obs = p.point_valid[pid]
+
+    X = p.X
+    cost0 = ba_cost_soa(p, huber_delta)
+    cost = cost0
+    lam = torch.as_tensor(lambda0, dtype=dtype, device=dev)
+    hist = []
+    for _ in range(iters):
+        r, Xc, z_ok = _project_residuals(p.R_wc, p.t_wc, X, cam, pid,
+                                         p.obs, p.obs_valid)
+        w = _huber_weight(r, huber_delta) * (z_ok & pv_obs).to(dtype)
+        z = torch.where(Xc[:, 2].abs() < 1e-6,
+                        torch.full_like(Xc[:, 2], 1e-6), Xc[:, 2])
+        inv_z = 1.0 / z
+        x, y = Xc[:, 0], Xc[:, 1]
+        zero = torch.zeros_like(inv_z)
+        Jproj = torch.stack(
+            [
+                torch.stack([inv_z, zero, -x * inv_z * inv_z], dim=-1),
+                torch.stack([zero, inv_z, -y * inv_z * inv_z], dim=-1),
+            ],
+            dim=-2,
+        )
+        Jp = torch.einsum("mij,mjk->mik", Jproj, R_obs) * w[:, None, None]
+        rw = r * w[:, None]
+        Hpp = _gathered_segment_sum(
+            torch.einsum("mia,mib->mab", Jp, Jp), plan)
+        bp = _gathered_segment_sum(torch.einsum("mia,mi->ma", Jp, rw), plan)
+        diag = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+        damp = (lam * torch.clamp(diag.amax(-1), min=1e-6)[:, None, None]
+                + 1e-9)
+        Hd = Hpp + damp * eye3
+        Hd = torch.where(p.point_valid[:, None, None], Hd, eye3)
+        dX = -torch.einsum("pij,pj->pi", linalg.inv3(Hd), bp)
+        X_try = torch.where(p.point_valid[:, None], X + dX, X)
+        new_cost = ba_cost_soa(p._replace(X=X_try), huber_delta)
+        accept = new_cost < cost
+        X = torch.where(accept, X_try, X)
+        cost = torch.where(accept, new_cost, cost)
+        lam = torch.where(accept, lam * 0.3, lam * 2.0)
+        hist.append(cost)
+    return X, {"cost0": cost0, "cost": cost,
+               "cost_hist": torch.stack(hist) if hist else cost0[None][:0]}

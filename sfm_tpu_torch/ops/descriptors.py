@@ -3,7 +3,9 @@
 Counterpart of sfm_tpu/ops/descriptors.py (reference: cpp/src/
 templering_sfm.cpp:1100-1129 ``global_desc_32`` — box-downsample to ≤32,
 nearest-resample to exactly 32x32, mean-removed, L2-normalized
-1024-float vector).  The keyframe ring stores one per keyframe.
+1024-float vector).  The keyframe ring stores one per keyframe, and
+``score_bank`` scores a keyframe against the whole ring with one matvec
+(replacing the per-keyframe dot loop at cpp:1827-1830).
 """
 
 from __future__ import annotations
@@ -28,3 +30,12 @@ def global_desc_32(img):
     d = img[yi][:, xi].reshape(-1)
     d = d - torch.mean(d)
     return d / (torch.linalg.vector_norm(d) + 1e-12)
+
+
+def score_bank(bank, bank_valid, desc):
+    """Cosine scores of ``desc`` against the keyframe bank.
+
+    bank (KF_CAP, 1024), bank_valid (KF_CAP,) bool -> (KF_CAP,) scores
+    with invalid rows at -inf. One matvec (ref cpp:1124-1129)."""
+    s = bank @ desc
+    return torch.where(bank_valid, s, torch.full_like(s, float("-inf")))

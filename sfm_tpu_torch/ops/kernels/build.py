@@ -40,6 +40,8 @@ _SIGNATURES = {
     "sfm_lk_gather_pair": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     "sfm_lk_level_fused": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _P,
                            _P],
+    "sfm_lk_gather": [_P, _I, _I, _P, _I, _I, _P, _P],
+    "sfm_lk_level_tmpl": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
 }
 
 _lib = None

@@ -1,15 +1,19 @@
-"""K2/K3 — LK window gather and fused LK level: CUDA wrappers + plain versions.
+"""K2/K3/K4/K5 — LK window gathers and LK levels: CUDA wrappers + plain versions.
 
 Counterpart of sfm_tpu/ops/pallas/block_gather_kernel.py
-(``load_blocks_pair_pallas``) and sfm_tpu/ops/pallas/lk_iter_kernel.py
-(``lk_iter_tmpl_pallas``); CUDA sources: csrc/lk_gather_pair.cu,
-csrc/lk_level_fused.cu (shared window addressing in csrc/lk_common.cuh).
+(``load_blocks_pair_pallas``, ``load_blocks_pallas``) and
+sfm_tpu/ops/pallas/lk_iter_kernel.py (``lk_iter_tmpl_pallas``,
+``lk_iter_pallas``); CUDA sources: csrc/lk_gather_pair.cu (K2 and its
+one-image mode K5), csrc/lk_level_fused.cu (K3), csrc/lk_level_tmpl.cu (K4);
+shared window addressing in csrc/lk_common.cuh, the shared iteration loop of
+K3 and K4 in csrc/lk_iterate.cuh.
 
 The plain versions are the port of the XLA ``fori_loop`` path of
 sfm_tpu/ops/klt._lk_level: ``_load_blocks`` (here a direct window gather
-by index), ``_qf``, ``_bil_t`` and the loop body.  Block storage is
-float32 only.  A wrapper launches its kernel for CUDA tensors (or raises)
-and takes the plain version only for CPU tensors.
+by index), ``_qf``, ``_bil_t`` and the loop body (``_lk_iterate_plain``,
+shared by the plain versions of K3 and K4).  Block storage is float32 only.
+A wrapper launches its kernel for CUDA tensors (or raises) and takes the
+plain version only for CPU tensors.
 
 Layout: tracks lead — blocks are (T, WIN, WIN), patches (T, P, P).  (The
 JAX twin keeps tracks on the last axis for the TPU's lanes.)
@@ -23,8 +27,10 @@ from sfm_tpu_torch.ops.kernels import build
 
 MARGIN = 6  # per-level search margin in px beyond the patch
 
-gather_launches = 0  # launches of the K2 gather kernel (plain int)
+gather_launches = 0  # launches of the K2 pair gather kernel (plain int)
 level_launches = 0   # launches of the K3 fused level kernel (plain int)
+gather1_launches = 0  # launches of the K5 one-image gather kernel
+tmpl_launches = 0    # launches of the K4 template-passed-in level kernel
 
 
 # ---------------------------------------------------------------------------
@@ -124,11 +130,54 @@ def lk_gather_pair(img0, starts0, win0: int, img1, starts1, win1: int):
 
 
 # ---------------------------------------------------------------------------
+# K5: one-image gather (the one-image mode of K2)
+# ---------------------------------------------------------------------------
+
+
+def lk_gather_plain(img, starts, win: int):
+    """(T,win,win) windows of ``img`` at integer starts (T,2) = (x,y),
+    clamped to the image."""
+    return _gather_windows(img, starts, win)
+
+
+def _lk_gather_cuda(img, starts, win):
+    global gather1_launches
+    if img.dtype != torch.float32 or img.dim() != 2 or not img.is_contiguous():
+        raise TypeError(f"lk_gather takes one contiguous 2-D float32 image, "
+                        f"got {tuple(img.shape)} {img.dtype}")
+    H, W = img.shape
+    if H < win or W < win:
+        raise ValueError(f"lk_gather: image {H}x{W} smaller than the "
+                         f"{win}-px window")
+    T = starts.shape[0]
+    if (starts.dtype != torch.int32 or starts.shape != (T, 2)
+            or starts.device != img.device or not starts.is_contiguous()):
+        raise TypeError("lk_gather takes contiguous int32 starts (T,2) on "
+                        "the image's device")
+    lib = build.load()
+    out = torch.empty((T, win, win), dtype=torch.float32, device=img.device)
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.sfm_lk_gather(img.data_ptr(), H, W, starts.data_ptr(), T,
+                                 int(win), out.data_ptr(), stream)
+    build.check_launch(code, "lk_gather")
+    gather1_launches += 1
+    return out
+
+
+def lk_gather(img, starts, win: int):
+    """K5. CUDA tensors -> kernel, CPU tensors -> plain slicing."""
+    if img.is_cuda:
+        return _lk_gather_cuda(img, starts, win)
+    return lk_gather_plain(img, starts, win)
+
+
+# ---------------------------------------------------------------------------
 # K3: fused LK level
 # ---------------------------------------------------------------------------
 
 
-def _load_blocks(img, origins, P: int, margin: int):
+def _load_blocks(img, origins, P: int, margin: int, gather=_gather_windows):
     """One contiguous square block per track around each float patch
     origin. Returns (blocks (T,WIN,WIN), anchors (T,2) float top-left)."""
     WIN = P + 2 * margin + 3  # +1 bilinear, +2 gradient shifts
@@ -136,7 +185,7 @@ def _load_blocks(img, origins, P: int, margin: int):
     if H < WIN or W < WIN:
         raise ValueError(f"image {H}x{W} smaller than the {WIN}-px LK block")
     start = window_start(origins, margin + 1, H, W, WIN)
-    return _gather_windows(img, start.to(torch.int32), WIN), start
+    return gather(img, start.to(torch.int32), WIN), start
 
 
 def _qf(origins, anchors, P: int, WINx: int, WINy: int):
@@ -183,25 +232,44 @@ def _bil_t(block, fx, fy, P: int, ox: int, oy: int):
     )
 
 
+def template_patch(blk0, a0, o0, P: int):
+    """(T,P,P) bilinear template at float origins ``o0`` = p0 - radius from
+    the (T,P+3,P+3) template windows ``blk0`` gathered at float starts
+    ``a0`` (the margin-0 ``_qf``: the sub-window is the whole window)."""
+    qii0, f0 = _qf(o0, a0, P, blk0.shape[2], blk0.shape[1])
+    return _bil_t(_sub_windows(blk0, qii0, P + 3), f0[:, 0], f0[:, 1], P,
+                  0, 0)
+
+
 def lk_level_plain(img0, img1, p0_l, v, iters: int, radius: int,
-                   min_det: float, margin: int = MARGIN):
+                   min_det: float, margin: int = MARGIN,
+                   gather=_gather_windows):
     """``iters`` LK updates at one pyramid level for all tracks, in plain
-    PyTorch (port of the XLA path of sfm_tpu/ops/klt._lk_level)."""
+    PyTorch (port of the XLA path of sfm_tpu/ops/klt._lk_level).
+    ``gather(img, int starts, win)`` fetches the windows (the SFM_TPU_LK_FUSED
+    =0 arm of ops/klt passes the K5 wrapper)."""
     P = 2 * radius + 1
-    S = P + 3
     # template: fixed patch from img0 (no search margin)
-    blk0, a0 = _load_blocks(img0, p0_l - radius, P, margin=0)
+    blk0, a0 = _load_blocks(img0, p0_l - radius, P, 0, gather)
     # target: one block per track with the search margin, loaded once
-    blk1, a1 = _load_blocks(img1, p0_l + v - radius, P, margin=margin)
-    WINy0, WINx0 = blk0.shape[1], blk0.shape[2]
+    blk1, a1 = _load_blocks(img1, p0_l + v - radius, P, margin, gather)
+    tmpl = template_patch(blk0, a0, p0_l - radius, P)
+    return _lk_iterate_plain(blk1, tmpl, lambda v: p0_l + v - radius - a1, v,
+                             iters, min_det)
+
+
+def _lk_iterate_plain(blk1, tmpl, q_of, v, iters: int, min_det: float):
+    """The LK iteration loop shared by the plain versions of K3 and K4:
+    ``iters`` updates of the flow ``v`` (T,2) against the (T,P,P) template
+    on the (T,WIN,WIN) search windows; ``q_of(v)`` is the float position of
+    the patch origin inside the window (K3's plain version forms it as
+    ``p0 + v - radius - start`` like the XLA path, K4's as ``base + v`` like
+    the TPU kernel)."""
+    P = tmpl.shape[-1]
+    S = P + 3
     WINy1, WINx1 = blk1.shape[1], blk1.shape[2]
-
-    qii0, f0 = _qf(p0_l - radius, a0, P, WINx0, WINy0)
-    tmpl = _bil_t(_sub_windows(blk0, qii0, S), f0[:, 0], f0[:, 1], P, 0, 0)
-
     for _ in range(iters):
-        origins = p0_l + v - radius
-        qii, f = _qf(origins, a1, P, WINx1, WINy1)
+        qii, f = _qf(q_of(v), 0.0, P, WINx1, WINy1)
         sub = _sub_windows(blk1, qii, S)
         fx, fy = f[:, 0], f[:, 1]
         cur = _bil_t(sub, fx, fy, P, 0, 0)
@@ -263,3 +331,56 @@ def lk_level_fused(img0, img1, p0_l, v, iters: int, radius: int,
                                     min_det, margin)
     return lk_level_plain(img0, img1, p0_l, v, iters, radius, min_det,
                           margin)
+
+
+# ---------------------------------------------------------------------------
+# K4: LK level with the template passed in
+# ---------------------------------------------------------------------------
+
+
+def lk_level_tmpl_plain(blocks, tmpl, base, v, iters: int, min_det: float):
+    """``iters`` LK updates for all tracks on search windows ``blocks``
+    (T,WIN,WIN) gathered at float starts ``start``, against the template
+    ``tmpl`` (T,P,P); ``base`` (T,2) = (p0 - radius) - start.  Returns v."""
+    return _lk_iterate_plain(blocks, tmpl, lambda v: base + v, v, iters,
+                             min_det)
+
+
+def _lk_level_tmpl_cuda(blocks, tmpl, base, v, iters, min_det):
+    global tmpl_launches
+    T, WIN = blocks.shape[0], blocks.shape[-1]
+    P = tmpl.shape[-1]
+    if (blocks.dtype != torch.float32 or blocks.shape != (T, WIN, WIN)
+            or not blocks.is_contiguous()):
+        raise TypeError("lk_level_tmpl takes contiguous float32 windows "
+                        f"(T,WIN,WIN), got {tuple(blocks.shape)} "
+                        f"{blocks.dtype}")
+    if WIN < P + 5:
+        raise ValueError(f"lk_level_tmpl: window {WIN} leaves no search "
+                         f"margin around a {P}-px patch")
+    for a, shape in ((tmpl, (T, P, P)), (base, (T, 2)), (v, (T, 2))):
+        if (a.dtype != torch.float32 or a.shape != shape
+                or a.device != blocks.device):
+            raise TypeError("lk_level_tmpl takes a float32 template (T,P,P) "
+                            "and float32 (T,2) bases and flows on the "
+                            "windows' device")
+    tmpl, base, v = tmpl.contiguous(), base.contiguous(), v.contiguous()
+    lib = build.load()
+    out = torch.empty((T, 2), dtype=torch.float32, device=blocks.device)
+    with torch.cuda.device(blocks.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.sfm_lk_level_tmpl(
+            blocks.data_ptr(), tmpl.data_ptr(), base.data_ptr(),
+            v.data_ptr(), T, int(P), int(WIN), int(iters), float(min_det),
+            out.data_ptr(), stream)
+    build.check_launch(code, "lk_level_tmpl")
+    tmpl_launches += 1
+    return out
+
+
+def lk_level_tmpl(blocks, tmpl, base, v, iters: int, min_det: float):
+    """K4. CUDA tensors -> the kernel (all iterations in one launch), CPU
+    tensors -> ``lk_level_tmpl_plain``."""
+    if blocks.is_cuda:
+        return _lk_level_tmpl_cuda(blocks, tmpl, base, v, iters, min_det)
+    return lk_level_tmpl_plain(blocks, tmpl, base, v, iters, min_det)

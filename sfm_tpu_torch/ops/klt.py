@@ -11,19 +11,39 @@ shifted reads of the same window.  The window margin bounds the per-level
 search range; flows that drift outside are clamped by the window and
 rejected by the forward-backward gate.
 
-On the card one level is ONE launch of the fused CUDA kernel
-(ops/kernels/lk_kernels.lk_level_fused: gather + template + all
-iterations); on the CPU it is the plain version in the same module.
+One level runs through one of three arms, chosen as the JAX twin chooses
+(sfm_tpu/ops/klt.py:319-412), with its environment switches read at call
+time ("0" turns an arm off; both default on):
+
+  (a) equal image shapes and SFM_TPU_LK_FUSED_TMPL not "0": ONE launch of
+      the fused kernel K3 (gather + template + all iterations);
+  (b) the shapes differ, or SFM_TPU_LK_FUSED_TMPL=0 (given a positive
+      margin, a window that fits img1 and SFM_TPU_LK_FUSED not "0"): the
+      template and search windows through the gather kernel K5, the
+      template patch in PyTorch, all iterations in the kernel K4;
+  (c) SFM_TPU_LK_FUSED=0 (or no margin, or a window wider than img1):
+      windows through K5, the iteration loop in PyTorch (the JAX twin runs
+      it as an XLA loop outside any kernel).
+
+The JAX twin's SFM_TPU_PALLAS (which on the card would run no kernel) and
+SFM_TPU_LK_BF16 are not read.  On the CPU every kernel is its plain
+version (ops/kernels/lk_kernels).
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from sfm_tpu_torch.ops.kernels import lk_kernels
-from sfm_tpu_torch.ops.kernels.lk_kernels import (  # noqa: F401
-    MARGIN, _bil_t, _load_blocks, _qf)
+from sfm_tpu_torch.ops.kernels.lk_kernels import MARGIN, _load_blocks
 from sfm_tpu_torch.utils.device import resolve, to_device
+
+
+def _env_on(name: str) -> bool:
+    """An arm switch of the JAX twin: anything but "0" leaves it on."""
+    return os.environ.get(name, "").strip() != "0"
 
 
 def _lk_level(img0, img1, p0_l, v, iters: int, radius: int, min_det: float,
@@ -32,8 +52,27 @@ def _lk_level(img0, img1, p0_l, v, iters: int, radius: int, min_det: float,
 
     p0_l: (T,2) template positions at this level; v: (T,2) current flow.
     Returns the updated flow v."""
-    return lk_kernels.lk_level_fused(img0, img1, p0_l, v, iters, radius,
-                                     min_det, margin)
+    P = 2 * radius + 1
+    WIN = P + 2 * margin + 3
+    H1, W1 = img1.shape
+    fused_ok = (margin > 0 and H1 >= WIN and W1 >= WIN
+                and _env_on("SFM_TPU_LK_FUSED"))
+    if (fused_ok and _env_on("SFM_TPU_LK_FUSED_TMPL")
+            and img0.shape == img1.shape):
+        return lk_kernels.lk_level_fused(img0, img1, p0_l, v, iters, radius,
+                                         min_det, margin)
+    if not fused_ok:
+        return lk_kernels.lk_level_plain(img0, img1, p0_l, v, iters, radius,
+                                         min_det, margin,
+                                         gather=lk_kernels.lk_gather)
+    # template: K5 windows of img0 (clamped to img0's own size), the patch
+    # built here as the JAX twin builds it outside its kernel
+    o0 = p0_l - radius
+    blk0, a0 = _load_blocks(img0, o0, P, 0, lk_kernels.lk_gather)
+    tmpl = lk_kernels.template_patch(blk0, a0, o0, P)
+    blk1, a1 = _load_blocks(img1, p0_l + v - radius, P, margin,
+                            lk_kernels.lk_gather)
+    return lk_kernels.lk_level_tmpl(blk1, tmpl, o0 - a1, v, iters, min_det)
 
 
 def lk_track(pyr0, pyr1, pts, valid, levels: int, iters: int, radius: int,

@@ -205,22 +205,47 @@ def _lk_case(rng, T=150, border=False):
     return img0, img1, pts, v0
 
 
-def _jax_lk_level(monkeypatch, img0, img1, pts, v0, pallas: bool,
+# (SFM_TPU_PALLAS, SFM_TPU_LK_FUSED, SFM_TPU_LK_FUSED_TMPL) of each arm;
+# the port reads the last two at call time and takes the same arm
+ARMS = {
+    "xla": ("0", "0", "0"),       # JAX: XLA loop; port: arm (c)
+    "fused": ("1", "1", "1"),     # pair gather + lk_iter_tmpl; port: K3
+    "tmpl": ("1", "1", "0"),      # load_blocks + lk_iter; port: K5 + K4
+    "unfused": ("1", "0", "0"),   # load_blocks + XLA loop; port: K5 + loop
+}
+
+
+def _set_arm(monkeypatch, arm: str):
+    for name, val in zip(("SFM_TPU_PALLAS", "SFM_TPU_LK_FUSED",
+                          "SFM_TPU_LK_FUSED_TMPL"), ARMS[arm]):
+        monkeypatch.setenv(name, val)
+
+
+def _jax_lk_level(monkeypatch, img0, img1, pts, v0, pallas,
                   iters=8, radius=6):
-    monkeypatch.setenv("SFM_TPU_PALLAS", "1" if pallas else "0")
-    monkeypatch.setenv("SFM_TPU_LK_FUSED", "1" if pallas else "0")
-    monkeypatch.setenv("SFM_TPU_LK_FUSED_TMPL", "1" if pallas else "0")
+    """klt._lk_level of the JAX package on the arm ``pallas`` names (a bool
+    picks "fused" or "xla"), Pallas kernels in interpret mode.  The arm's
+    switches stay set for the port's call that follows."""
+    arm = pallas if isinstance(pallas, str) else (
+        "fused" if pallas else "xla")
+    _set_arm(monkeypatch, arm)
     jax.clear_caches()
     return np.asarray(jklt._lk_level(
         jnp.asarray(img0), jnp.asarray(img1), jnp.asarray(pts),
         jnp.asarray(v0), iters, radius, 1e-4))
 
 
-@pytest.mark.parametrize("pallas", [False, True],
-                         ids=["xla_path", "fused_pallas_interpret"])
+@pytest.mark.parametrize("pallas", [False, True, "tmpl", "unfused"],
+                         ids=["xla_path", "fused_pallas_interpret",
+                              "tmpl_pallas_interpret",
+                              "unfused_pallas_interpret"])
 def test_torch_lk_level_matches_jax(rng, monkeypatch, pallas):
-    """Port's plain LK level vs klt._lk_level on the XLA path and on the
-    fused Pallas path (pair gather + in-kernel template, interpret mode).
+    """Port's LK level vs klt._lk_level on each arm, with the same switches
+    on both sides: the XLA path; the fused Pallas path (pair gather +
+    in-kernel template); the template-passed-in path
+    (SFM_TPU_LK_FUSED_TMPL=0: one-image gathers + lk_iter_pallas, the
+    port's K5 + K4); the unfused path (SFM_TPU_LK_FUSED=0: one-image
+    gathers + the loop outside any kernel).  Pallas in interpret mode.
     Same bar as the JAX package holds its own fused kernel to: atol 1e-4 px
     on every track, median under 1e-5 — window starts, clamp bounds and
     fractions are identical, only the order of the P*P sums differs."""
@@ -253,6 +278,95 @@ def test_torch_lk_level_border_tracks_match_jax(rng, monkeypatch, pallas):
     assert np.isfinite(out).all()
     assert (d[:nb] < 1e-3).mean() >= 0.95, np.sort(d[:nb])[-12:]
     np.testing.assert_array_less(d[nb:], 1e-4)
+
+
+def test_torch_lk_level_unequal_shapes_matches_jax(rng, monkeypatch):
+    """A 120x160 template image and a 120x152 search image (the JAX
+    package takes its template-passed-in arm for a pair of unequal shapes):
+    the port returns flows, and they agree with JAX's interpret-mode Pallas
+    path at the bar of ``test_torch_lk_level_matches_jax``.
+
+    The fused kernel K3 takes one shape only: its CUDA wrapper raises for
+    unequal shapes.  On the CPU the wrapper takes its plain version, which
+    does not check, so the wrapper is replaced here by one that checks as
+    the card does: the level must not route such a pair to K3."""
+    real = lk_kernels.lk_level_fused
+
+    def as_on_card(img0, img1, p0_l, v, iters, radius, min_det,
+                   margin=lk_kernels.MARGIN):
+        lk_kernels._check_image_pair(img0, img1, 2 * radius + 2 * margin + 4,
+                                     "lk_level_fused")
+        return real(img0, img1, p0_l, v, iters, radius, min_det, margin)
+
+    monkeypatch.setattr(lk_kernels, "lk_level_fused", as_on_card)
+    img0, img1, pts, v0 = _lk_case(rng)
+    img1 = np.ascontiguousarray(img1[:, :152])
+    ref = _jax_lk_level(monkeypatch, img0, img1, pts, v0, True)
+    out = klt._lk_level(t32(img0), t32(img1), t32(pts), t32(v0), 8, 6,
+                        1e-4).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-4)
+    assert np.median(np.abs(out - ref)) < 1e-5
+    assert np.median(np.abs(out - np.array([-3.0, 2.0]))) < 0.05
+
+
+def test_torch_lk_gather_plain_matches_load_blocks_pallas(rng):
+    """K5's plain version against load_blocks_pallas (interpret mode): the
+    TPU kernel returns 8 more rows, anchored at an aligned row below the
+    clamped start; rows [d, d+WIN) of its block are the window, d = start
+    - anchor.  Bit-exact, including INT_MIN/INT_MAX starts and the starts
+    NaN origins cast to."""
+    from sfm_tpu.ops.pallas.block_gather_kernel import load_blocks_pallas
+
+    a = make_textured(rng, 120, 160)
+    T, WIN = 64, 28
+    s = np.stack([rng.integers(-40, 200, T), rng.integers(-40, 160, T)], -1)
+    s[:4] = [[-2**31, -2**31], [2**31 - 1, 2**31 - 1], [0, 160 - WIN],
+             [160 - WIN, 0]]
+    starts = s.astype(np.int32)
+    blocks, anchors = load_blocks_pallas(jnp.asarray(a), jnp.asarray(starts),
+                                         WIN, interpret=True)
+    blocks, anchors = np.asarray(blocks), np.asarray(anchors)
+    d = np.clip(starts[:, 1], 0, 120 - WIN) - anchors[:, 1]
+    assert ((d >= 0) & (d < blocks.shape[1] - WIN + 1)).all()
+    ref = np.stack([blocks[t, d[t]:d[t] + WIN] for t in range(T)])
+    out = lk_kernels.lk_gather(t32(a), torch.as_tensor(starts), WIN)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(
+        out.numpy(), lk_kernels.lk_gather_plain(t32(a), torch.as_tensor(
+            starts), WIN).numpy())
+
+
+def test_torch_lk_level_tmpl_plain_matches_lk_iter_pallas(rng):
+    """K4's plain version against lk_iter_pallas (interpret mode) on the
+    same windows and template: the TPU kernel's raw aligned blocks with
+    their row remainder d, the port's exact windows (d = 0).  atol 1e-4 px
+    on every track (only the order of the P*P sums differs)."""
+    from sfm_tpu.ops.pallas.block_gather_kernel import load_blocks_pallas
+    from sfm_tpu.ops.pallas.lk_iter_kernel import lk_iter_pallas
+
+    img0, img1, pts, v0 = _lk_case(rng, T=96)
+    P, WIN = 13, 13 + 2 * lk_kernels.MARGIN + 3
+    o0 = t32(pts) - 6
+    blk0, a0 = lk_kernels._load_blocks(t32(img0), o0, P, 0)
+    tmpl = lk_kernels.template_patch(blk0, a0, o0, P)
+    o1 = t32(pts) + t32(v0) - 6
+    start = lk_kernels.window_start(o1, lk_kernels.MARGIN + 1, 120, 160, WIN)
+    starts = start.to(torch.int32)
+    blk1 = lk_kernels.lk_gather(t32(img1), starts, WIN)
+    base = o0 - start
+    out = lk_kernels.lk_level_tmpl(blk1, tmpl, base, t32(v0), 8,
+                                   1e-4).numpy()
+    raw, anchors = load_blocks_pallas(jnp.asarray(img1),
+                                      jnp.asarray(starts.numpy()), WIN,
+                                      interpret=True)
+    d = starts.numpy()[:, 1] - np.asarray(anchors)[:, 1]
+    ref = np.asarray(lk_iter_pallas(
+        raw, jnp.asarray(d), jnp.asarray(tmpl.permute(1, 2, 0).numpy()),
+        jnp.asarray(base.numpy()), jnp.asarray(v0), P=P,
+        slack=int(raw.shape[1]) - WIN, iters=8, min_det=1e-4,
+        interpret=True))
+    np.testing.assert_allclose(out, ref, atol=1e-4)
+    assert np.median(np.abs(out - np.array([-3.0, 2.0]))) < 0.05
 
 
 def test_torch_lk_level_nan_positions(rng, monkeypatch):
@@ -435,7 +549,7 @@ def test_torch_default_device_raises_without_cuda(rng, entry):
 
 @pytest.mark.gpu
 def test_torch_kernels_match_plain_on_card(rng):
-    """The three CUDA kernels against their plain versions on the card
+    """The five CUDA kernels against their plain versions on the card
     (``python3 chip_smoke.py`` runs the same comparison at full size)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -450,4 +564,18 @@ def test_torch_kernels_match_plain_on_card(rng):
     v0 = torch.zeros_like(pts)
     out = lk_kernels.lk_level_fused(a, b, pts, v0, 8, 6, 1e-4)
     ref = lk_kernels.lk_level_plain(a, b, pts, v0, 8, 6, 1e-4)
+    assert float((out - ref).abs().max()) <= 1e-4
+    # K5 (bit-exact, garbage starts included) and K4 on K5's windows
+    st = torch.as_tensor(rng.integers(-40, 200, (100, 2)),
+                         dtype=torch.int32, device=dev)
+    st[0] = torch.tensor([-2**31, 2**31 - 1], dtype=torch.int32)
+    assert torch.equal(lk_kernels.lk_gather(b, st, 28),
+                       lk_kernels.lk_gather_plain(b, st, 28))
+    o0 = pts - 6
+    blk0, a0 = lk_kernels._load_blocks(a, o0, 13, 0, lk_kernels.lk_gather)
+    tmpl = lk_kernels.template_patch(blk0, a0, o0, 13)
+    blk1, a1 = lk_kernels._load_blocks(b, o0, 13, lk_kernels.MARGIN,
+                                       lk_kernels.lk_gather)
+    out = lk_kernels.lk_level_tmpl(blk1, tmpl, o0 - a1, v0, 8, 1e-4)
+    ref = lk_kernels.lk_level_tmpl_plain(blk1, tmpl, o0 - a1, v0, 8, 1e-4)
     assert float((out - ref).abs().max()) <= 1e-4

@@ -1,8 +1,9 @@
 """PyTorch port vs JAX package: the scan pipeline as a whole, on the CPU.
 
 Two checks on the 12-frame synthetic ring with the small configuration of
-tests/test_scan_pipeline.py (loop closure off, ``ba.global_iters=0``: the
-configuration this slice of the port runs):
+tests/test_scan_pipeline.py, with loop closure off and ``ba.global_iters=0``
+(loop closure and the finalize refinement are held to the JAX package in
+tests/test_torch_loop.py):
 
 (a) one frame from the same state.  The JAX pipeline runs k frames, its
     carry is pulled leaf by leaf and converted (``carry_from_numpy``), and
@@ -331,20 +332,37 @@ def test_torch_scan_observation_backfill(torch_run):
     assert (n_obs >= 2).mean() > 0.9
 
 
-@pytest.mark.parametrize("field,over", [
-    ("loop", dict(enabled=True)),
-    ("ba", dict(global_iters=5)),
-    ("use_gt_scale", True),
-])
-def test_torch_scan_refuses_what_waits(synthetic_ring, field, over):
-    """Loop closure, the final structure refinement and GT scaling are not
-    in this slice: the constructor says so instead of skipping them."""
-    cfg = _small_cfg(config)
-    new = (over if not isinstance(over, dict)
-           else dataclasses.replace(getattr(cfg, field), **over))
-    cfg = dataclasses.replace(cfg, **{field: new})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sp.ScanSfM(synthetic_ring.K, cfg, n_frames=12, device="cpu")
+@pytest.mark.parametrize("case", ["orb_loops", "gt_scale_without_records",
+                                  "default_config"])
+def test_torch_scan_refuses_what_waits(synthetic_ring, case):
+    """What the constructor refuses, and what it now takes: the ORB loop
+    flavor is not ported and says so; use_gt_scale without the dataset's
+    GT records raises ValueError, as in the JAX package; the default
+    configuration (loop closure with device-side verification, the final
+    structure refinement) constructs."""
+    K = synthetic_ring.K
+    if case == "orb_loops":
+        cfg = dataclasses.replace(
+            _small_cfg(config),
+            loop=config.LoopConfig(enabled=True, method="orb"))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sp.ScanSfM(K, cfg, n_frames=12, device="cpu")
+    elif case == "gt_scale_without_records":
+        cfg = dataclasses.replace(_small_cfg(config), use_gt_scale=True)
+        jcfg = dataclasses.replace(_small_cfg(jconfig), use_gt_scale=True)
+        with pytest.raises(ValueError, match="gt_records"):
+            jsp.ScanSfM(K, jcfg, n_frames=12)
+        with pytest.raises(ValueError, match="gt_records"):
+            sp.ScanSfM(K, cfg, n_frames=12, device="cpu")
+        s = sp.ScanSfM(K, cfg, n_frames=12, device="cpu",
+                       gt_records=synthetic_ring.records)
+        assert s._gt_C.shape == (len(synthetic_ring.records), 3)
+    else:
+        cfg = config.SystemConfig()
+        assert cfg.loop.enabled and cfg.loop.device_verify
+        assert cfg.ba.global_iters > 0
+        s = sp.ScanSfM(K, cfg, n_frames=12, device="cpu")
+        assert s.device.type == "cpu" and s.carry is None
 
 
 def test_torch_scan_default_device_raises_without_cuda(synthetic_ring):
