@@ -62,6 +62,11 @@ LEVELS = 4
 FRAMES = 47
 HEAD_START_CYCLES = 10_000_000  # ~5 ms of device spin before a timed run
 SHIFT_XY = (-8, 16)  # test flow of the LK kernel check: whole px at 4 levels
+# K3/K4 at other patch radii, T_RADII tracks each: the kernels instantiate
+# their loop for radius 1..10 and take any other radius (12 here) at run time
+RADII_EXTRA = (3, 5, 7, 10, 12)
+T_RADII = 512
+RADII_SEED = 4  # seed of their inputs (PERF.md, Findings: other seeds)
 
 
 def emit(obj) -> None:
@@ -226,41 +231,41 @@ def check_lk_gather(dev, rng, pyr0, pyr1) -> dict:
     }
 
 
-def k3_level(pyr0, pyr1, L, p, v, iters, which):
+def k3_level(pyr0, pyr1, L, p, v, iters, which, radius=RADIUS):
     """One level of K3 ("kernel"), or of its plain version in float32
     ("plain") or float64 ("plain64")."""
     from sfm_tpu_torch.ops.kernels import lk_kernels as lk
 
     if which == "kernel":
-        return lk.lk_level_fused(pyr0[L], pyr1[L], p, v, iters, RADIUS, 1e-4)
+        return lk.lk_level_fused(pyr0[L], pyr1[L], p, v, iters, radius, 1e-4)
     cast = (lambda t: t.double()) if which == "plain64" else (lambda t: t)
     return lk.lk_level_plain(cast(pyr0[L]), cast(pyr1[L]), cast(p), cast(v),
-                             iters, RADIUS, 1e-4)
+                             iters, radius, 1e-4)
 
 
-def k4_inputs(pyr0, pyr1, L, p, v, dtype=torch.float32):
+def k4_inputs(pyr0, pyr1, L, p, v, dtype=torch.float32, radius=RADIUS):
     """K4's inputs as the template-passed-in arm makes them: the search
     windows, the template patch and the base (window gathers by slicing,
     which K5 matches bit for bit)."""
     from sfm_tpu_torch.ops.kernels import lk_kernels as lk
 
-    P = 2 * RADIUS + 1
+    P = 2 * radius + 1
     img0, img1 = pyr0[L].to(dtype), pyr1[L].to(dtype)
     p, v = p.to(dtype), v.to(dtype)
-    o0 = p - RADIUS
+    o0 = p - radius
     blk0, a0 = lk._load_blocks(img0, o0, P, 0)
     tmpl = lk.template_patch(blk0, a0, o0, P)
-    blk1, a1 = lk._load_blocks(img1, p + v - RADIUS, P, lk.MARGIN)
+    blk1, a1 = lk._load_blocks(img1, p + v - radius, P, lk.MARGIN)
     return blk1, tmpl, o0 - a1, v
 
 
-def k4_level(pyr0, pyr1, L, p, v, iters, which):
+def k4_level(pyr0, pyr1, L, p, v, iters, which, radius=RADIUS):
     """One level of K4 ("kernel"), or of its plain version in float32
     ("plain") or float64 ("plain64"), on inputs made at (p, v)."""
     from sfm_tpu_torch.ops.kernels import lk_kernels as lk
 
     dtype = torch.float64 if which == "plain64" else torch.float32
-    blk1, tmpl, base, v = k4_inputs(pyr0, pyr1, L, p, v, dtype)
+    blk1, tmpl, base, v = k4_inputs(pyr0, pyr1, L, p, v, dtype, radius)
     fn = lk.lk_level_tmpl if which == "kernel" else lk.lk_level_tmpl_plain
     return fn(blk1, tmpl, base, v, iters, 1e-4)
 
@@ -286,10 +291,13 @@ def lk_step_chain(level, p, v, good, tol, gap_factor):
     return worst, excess
 
 
-def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level) -> dict:
+def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level, radius=RADIUS,
+                   T=T_TRACKS, timed=True) -> dict:
     """K3 (or, with ``level=k4_level``, K4) against the plain version on
-    all four levels: non-zero incoming flow, half of the tracks within one
-    search window of a border, and a second run with 40 % NaN positions.
+    all four levels at patch radius ``radius`` with ``T`` tracks: non-zero
+    incoming flow, half of the tracks within one search window of a
+    border, and a second run with 40 % NaN positions.  ``timed=False``
+    checks only and returns a short summary.
 
     All ``ITERS`` iterations in one launch:
     interior tracks (at least one search window from every border, so no
@@ -323,7 +331,7 @@ def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level) -> dict:
     allowance (under 1 passes)."""
     from sfm_tpu_torch.ops.kernels import lk_kernels as lk
 
-    P = 2 * RADIUS + 1
+    P = 2 * radius + 1
     WIN = P + 2 * lk.MARGIN + 3
     k4 = level is k4_level
     tol, tol_border, med_tol = 1e-4, 1e-3, 1e-5
@@ -335,24 +343,24 @@ def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level) -> dict:
         return a[:, [1, 0]].contiguous()
     step_gap_factor = 2.0
     worst = worst_border = worst_med = worst_step = worst_excess = 0.0
+    min_frac = 1.0
     ok = True
     per_level = []
     ms_levels = []
-    plain_ms = None
+    plain_ms = ms_by_iters = None
     for L in range(LEVELS):
         H, W = pyr0[L].shape
         flow = np.array(SHIFT_XY, np.float32) / 2 ** L
         for nan_frac in (0.0, 0.4):
-            pts = level_points(rng, H, W, T_TRACKS, WIN)
-            bad = rng.random(T_TRACKS) < nan_frac
+            pts = level_points(rng, H, W, T, WIN)
+            bad = rng.random(T) < nan_frac
             pts[bad] = np.nan
-            v0 = (flow + rng.uniform(-0.7, 0.7, (T_TRACKS, 2))).astype(
-                np.float32)
+            v0 = (flow + rng.uniform(-0.7, 0.7, (T, 2))).astype(np.float32)
             p = torch.as_tensor(pts, device=dev)
             v = torch.as_tensor(v0, device=dev)
 
             def run(p, v, iters, which, L=L):
-                return level(pyr0, pyr1, L, p, v, iters, which)
+                return level(pyr0, pyr1, L, p, v, iters, which, radius)
 
             out = run(p, v, ITERS, "kernel")
             torch.cuda.synchronize()
@@ -366,7 +374,7 @@ def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level) -> dict:
                      & (pp[:, 1] >= WIN) & (pp[:, 1] <= H - 1 - WIN))
             border = good & ~inner
             refT = swap(level(pyr0T, pyr1T, L, swap(p), swap(v), ITERS,
-                              "plain"))
+                              "plain", radius))
             stable = border & ((ref - refT).abs().amax(-1) < stable_tol) & (
                 (ref.double() - ref64).abs().amax(-1)
                                < stable_tol)
@@ -377,6 +385,7 @@ def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level) -> dict:
             med = float(d[good].median())
             worst, worst_border = max(worst, err), max(worst_border, err_b)
             worst_med = max(worst_med, med)
+            min_frac = min(min_frac, frac)
             err_s, excess = lk_step_chain(run, p, v, good, tol,
                                           step_gap_factor)
             worst_step = max(worst_step, err_s)
@@ -392,17 +401,28 @@ def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level) -> dict:
                               "max_abs_err_step": err_s,
                               "max_step_excess": excess,
                               "median_abs_err": med, "finite": finite})
-            if nan_frac == 0.0:
+            if timed and nan_frac == 0.0:
                 if k4:  # the kernel alone, on inputs made once
-                    ins = k4_inputs(pyr0, pyr1, L, p, v)
-                    kern = lambda: lk.lk_level_tmpl(*ins, ITERS, 1e-4)  # noqa: E731
+                    ins = k4_inputs(pyr0, pyr1, L, p, v, radius=radius)
+                    kern = lambda n=ITERS: lk.lk_level_tmpl(*ins, n, 1e-4)  # noqa: E731
                     plain = lambda: lk.lk_level_tmpl_plain(*ins, ITERS, 1e-4)  # noqa: E731
                 else:
-                    kern = lambda: run(p, v, ITERS, "kernel")  # noqa: E731
+                    kern = lambda n=ITERS: run(p, v, n, "kernel")  # noqa: E731
                     plain = lambda: run(p, v, ITERS, "plain")  # noqa: E731
                 ms_levels.append(time_ms(kern))
                 if L == 0:
                     plain_ms = time_ms(plain, n=3, warm=1)
+                    # the launch's fixed part (windows, template, flow
+                    # in/out) against the cost of each update
+                    ms_by_iters = {n: time_ms(lambda n=n: kern(n))
+                                   for n in (0, 1, 4)}
+                    ms_by_iters[ITERS] = ms_levels[0]
+    if not timed:
+        return {"radius": radius, "tracks": T, "max_abs_err": worst,
+                "max_abs_err_border": worst_border,
+                "min_border_stable_frac": min_frac,
+                "max_step_excess": worst_excess, "median_abs_err": worst_med,
+                "ok": bool(ok)}
     ms = ms_levels[0]
     H, W = pyr0[0].shape
     # what the function needs: cur and the four gradient neighbours are the
@@ -412,30 +432,55 @@ def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level) -> dict:
     # 5 products and 5 sums (15 flops); K3 also builds the template, one
     # P^2 map, which K4 is given
     n_map, n_px = (P + 2) * (P + 2), P * P
-    flops = T_TRACKS * ITERS * (n_map * 7 + n_px * 15)
+    flops = T * ITERS * (n_map * 7 + n_px * 15)
     if k4:
         # in: the search windows, the templates, base and flow; out: flow
-        b_ms, b_by = bound(T_TRACKS * ((WIN * WIN + n_px) * 4 + 24), flops)
+        b_ms, b_by = bound(T * ((WIN * WIN + n_px) * 4 + 24), flops)
         ident = {"name": "lk_level_tmpl",
                  "source": "sfm_tpu_torch/csrc/lk_level_tmpl.cu",
                  "replaces": "sfm_tpu/ops/pallas/lk_iter_kernel.py:184"}
     else:
-        b_ms, b_by = bound(2 * H * W * 4 + T_TRACKS * 24,
-                           flops + T_TRACKS * n_px * 7)
+        b_ms, b_by = bound(2 * H * W * 4 + T * 24, flops + T * n_px * 7)
         ident = {"name": "lk_level_fused",
                  "source": "sfm_tpu_torch/csrc/lk_level_fused.cu",
                  "replaces": "sfm_tpu/ops/pallas/lk_iter_kernel.py:246 + "
                              "sfm_tpu/ops/pallas/block_gather_kernel.py:209"}
     return {
         **ident, "route": "cuda",
-        "shape": [T_TRACKS, P, WIN, ITERS], "max_abs_err": worst,
+        "shape": [T, P, WIN, ITERS], "max_abs_err": worst,
         "max_abs_err_border": worst_border, "tol_border": tol_border,
         "max_abs_err_step": worst_step, "max_step_excess": worst_excess,
         "tol_step": f"{tol} + {step_gap_factor} * |plain f32 - plain f64|",
         "median_abs_err": worst_med, "tol": tol, "ok": bool(ok),
-        "levels": per_level, "ms_levels": ms_levels, "ms": ms, "plain_ms": plain_ms,
+        "levels": per_level, "ms_levels": ms_levels,
+        "ms_by_iters": ms_by_iters, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
+
+
+def check_lk_level_radii(dev, pyr0, pyr1, level, row,
+                        seed=RADII_SEED) -> dict:
+    """Adds to ``row``, the full-size check of K3 or K4 at the pipeline's
+    radius, ``check_lk_level`` with its rules and tolerances at each radius
+    of RADII_EXTRA with T_RADII tracks, on inputs made from ``seed``.
+
+    At T_RADII tracks the rules' border part is fragile, and RADII_SEED is
+    a seed on whose inputs it holds: the share of border tracks on which
+    the plain version is itself stable lies close to the 0.9 the rules ask
+    at level 3, and among some 10,000 border tracks per kernel a track
+    that the plain version's two perturbations call stable may still end
+    over 1e-3 px from a kernel whose every single update agrees with it.
+    ``tools/chip_lk_survey.py`` runs this check on the inputs of other
+    seeds and holds the kernels' flows on them bit for bit against another
+    tree's kernels (PERF.md, Findings)."""
+    rng = np.random.default_rng(seed)
+    extra = [check_lk_level(dev, rng, pyr0, pyr1, level, radius=r,
+                            T=T_RADII, timed=False) for r in RADII_EXTRA]
+    row["radii_checked"] = [RADIUS, *RADII_EXTRA]
+    row["radii_seed"] = seed
+    row["radii"] = extra
+    row["ok"] = row["ok"] and all(e["ok"] for e in extra)
+    return row
 
 
 def check_lk_gather1(dev, rng, pyr1) -> dict:
@@ -476,6 +521,35 @@ def check_lk_gather1(dev, rng, pyr1) -> dict:
     }
 
 
+def ptxas_summary(log: str) -> list[dict]:
+    """Registers and spilled bytes of each kernel from ``nvcc -Xptxas
+    -v``'s log, the kernel named as base<template argument>."""
+    import re
+
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN?(\w+)'", ln)
+        if m:
+            # _Z[N] then length-prefixed names (namespaces, then the
+            # kernel), then I...E for template arguments
+            rest, name = m.group(1), ""
+            while (n := re.match(r"\d+", rest)):
+                k = n.end() + int(n.group())
+                name, rest = rest[n.end():k], rest[k:]
+            targ = re.match(r"IL[a-z](-?\d+)E", rest)
+            out.append({"fn": name + (f"<{targ.group(1)}>" if targ else ""),
+                        "registers": None, "spill_bytes": None})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and out:
+            out[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_kernels(dev, frame0) -> list[dict]:
     rng = np.random.default_rng(0)
     pyr0, pyr1 = lk_inputs(dev, rng)
@@ -485,6 +559,9 @@ def phase_kernels(dev, frame0) -> list[dict]:
                 check_lk_level(dev, rng, pyr0, pyr1),
                 check_lk_level(dev, rng, pyr0, pyr1, level=k4_level),
                 check_lk_gather1(dev, rng, pyr1)]
+        # the other radii after the rows above, which keep their inputs
+        for i, level in ((2, k3_level), (3, k4_level)):
+            rows[i] = check_lk_level_radii(dev, pyr0, pyr1, level, rows[i])
     for r in rows:
         r["kernel_ms"] = r["ms"]
     return rows
@@ -900,10 +977,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load(verbose=True)
+    ptxas = ptxas_summary(build.build_log)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": build.build_seconds,
-          "ptxas": [ln for ln in build.build_log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "spill_bytes": sum(k["spill_bytes"] or 0 for k in ptxas),
+          "ptxas": ptxas})
 
     spec = ring_spec()
     K, Rs, ts, _, _ = make_ring_cameras(spec)
@@ -941,7 +1019,7 @@ def main() -> int:
             "tol", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("max_abs_err_border", "tol_border", "max_abs_err_step",
-             "max_step_excess", "tol_step")
+             "max_step_excess", "tol_step", "radii_checked")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in rows]})
     print(smi, flush=True)

@@ -11,6 +11,7 @@
 // track converges on.
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <float.h>
@@ -58,6 +59,29 @@ __device__ __forceinline__ void load_window(const float* __restrict__ img,
         int c = i - r * win;
         dst[r * dst_stride + c] = src[(size_t)r * W + c];
     }
+}
+
+// load_window for one warp, with cp.async (4 bytes a lane): row by row,
+// lane l on columns l, l+32, ...; every load of the window is in flight at
+// once, and none passes through registers.  The caller waits with
+// copy_wait().
+__device__ __forceinline__ void load_window_async(
+    const float* __restrict__ img, int H, int W, int sx, int sy, int win,
+    float* dst, int dst_stride, int lane) {
+    sx = clamp_start(sx, W, win);
+    sy = clamp_start(sy, H, win);
+    const float* src = img + (size_t)sy * W + sx;
+    for (int r = 0; r < win; ++r)
+        for (int c = lane; c < win; c += 32)
+            __pipeline_memcpy_async(dst + r * dst_stride + c,
+                                    src + (size_t)r * W + c, sizeof(float));
+}
+
+// Waits for this lane's load_window_async copies, then for the warp's.
+__device__ __forceinline__ void copy_wait() {
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();
 }
 
 }  // namespace sfm

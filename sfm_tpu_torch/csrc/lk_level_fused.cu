@@ -39,22 +39,44 @@
 // and ~15 flops per patch pixel for differences, residual, products and
 // sums: at T=2200, P=13, 16 iterations about 1.5e8 float32 operations, which
 // outweigh the bytes at the card's peak rates.  Both are a few microseconds,
-// far below a launch's latency.  This kernel does not reach that count: it
-// evaluates the five bilinear reads of a pixel separately (about three times
-// the operations) to repeat the plain version's arithmetic bit for bit.  What
-// it actually waits for is the chain of `iters` dependent updates, each a
-// pass over P^2 pixels plus five warp reductions.  Design for that: one warp
-// per track (no block barrier in the loop, only __syncwarp), windows in
-// shared memory so every iteration's 12 reads per pixel are shared-memory
-// reads, four tracks per block so 550 blocks spread over the SMs.
+// far below a launch's latency.  What the kernel waits for is the chain of
+// `iters` dependent updates, each a pass over the map and the patch plus
+// five warp reductions.  Design for that:
+//   - one warp per track, no block barrier in the loop (only __syncwarp),
+//     windows in shared memory, gathered with cp.async (all of a track's
+//     loads in flight at once);
+//   - one bilinear map per update, written to shared memory and read at
+//     five offsets: 4 loads and 11 flops per map pixel, 6 loads per patch
+//     pixel, instead of 20 loads and ~55 flops per patch pixel; a lane
+//     issues all its map loads before its first map store;
+//   - the patch size a template parameter (radius 1..10; other radii take
+//     the run-time-P instantiation), so the lane loops unroll - 8 map and 6
+//     patch pixels per lane at P = 13 - and their loads overlap;
+//   - row strides chosen so that a warp's loads hit 32 distinct banks
+//     (sfm::bank_stride: 47 for the search window, 45 for the map at
+//     P = 13);
+//   - sfm::kLkTracksPerBlock tracks per block (2: 1100 blocks at T=2200
+//     spread more evenly over 132 SMs than 4 or 8 per block).
+// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): 0.0294 ms at
+// T=2200, P=13, 16 iterations, the same at every pyramid level (0.0472
+// ms with five bilinear reads per patch pixel); PERF.md, Findings.
 
 #include "lk_common.cuh"
 #include "lk_iterate.cuh"
 
 namespace {
 
-constexpr int kTracksPerBlock = 4;
+constexpr int kTracksPerBlock = sfm::kLkTracksPerBlock;
 
+// Shared floats per track: the search window, the template window, the
+// update's map, the template.
+__host__ __device__ inline int fused_floats_per_track(int P, int margin) {
+    const int WIN0 = P + 3, WIN = P + 2 * margin + 3;
+    return WIN * sfm::bank_stride(P + 2, WIN) + WIN0 * WIN0 +
+           sfm::map_floats(P) + P * P;
+}
+
+template <int kP>
 __global__ void lk_level_fused_kernel(const float* __restrict__ img0,
                                       const float* __restrict__ img1, int H,
                                       int W, const float* __restrict__ p0,
@@ -63,19 +85,20 @@ __global__ void lk_level_fused_kernel(const float* __restrict__ img0,
                                       float min_det,
                                       float* __restrict__ v_out) {
     extern __shared__ float smem[];
-    const int P = 2 * radius + 1;
+    const int P = kP > 0 ? kP : 2 * radius + 1;
     const int WIN0 = P + 3;
     const int WIN = P + 2 * margin + 3;
-    const int per_track = WIN * WIN + WIN0 * WIN0 + P * P;
+    const int WINS = sfm::bank_stride(P + 2, WIN);
 
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     const int t = blockIdx.x * kTracksPerBlock + warp;
     if (t >= T) return;  // whole warp leaves together
 
-    float* B1 = smem + warp * per_track;
-    float* B0 = B1 + WIN * WIN;
-    float* tmpl = B0 + WIN0 * WIN0;
+    float* B1 = smem + warp * fused_floats_per_track(P, margin);
+    float* B0 = B1 + WIN * WINS;
+    float* M = B0 + WIN0 * WIN0;
+    float* tmpl = M + sfm::map_floats(P);
 
     const float px = p0[2 * t], py = p0[2 * t + 1];
     float vx = v_in[2 * t], vy = v_in[2 * t + 1];
@@ -89,30 +112,49 @@ __global__ void lk_level_fused_kernel(const float* __restrict__ img0,
     const float s1x = sfm::window_start(o1x, margin + 1, W, WIN);
     const float s1y = sfm::window_start(o1y, margin + 1, H, WIN);
 
-    sfm::load_window(img0, H, W, (int)s0x, (int)s0y, WIN0, B0, WIN0, lane, 32);
-    sfm::load_window(img1, H, W, (int)s1x, (int)s1y, WIN, B1, WIN, lane, 32);
-    __syncwarp();
+    sfm::load_window_async(img0, H, W, (int)s0x, (int)s0y, WIN0, B0, WIN0,
+                           lane);
+    sfm::load_window_async(img1, H, W, (int)s1x, (int)s1y, WIN, B1, WINS,
+                           lane);
+    sfm::copy_wait();
 
-    // template: bilinear read of the fixed sub-window [0, P+3) at (1, 1)
+    // template: the P x P bilinear map of the fixed sub-window [0, P+3) at
+    // (1, 1)
     const float f0x = __fsub_rn(__fsub_rn(o0x, s0x), 1.0f);
     const float f0y = __fsub_rn(__fsub_rn(o0y, s0y), 1.0f);
-    {
-        const float g0x = __fsub_rn(1.0f, f0x), g0y = __fsub_rn(1.0f, f0y);
-        for (int i = lane; i < P * P; i += 32) {
-            int y = i / P, x = i - y * P;
-            tmpl[i] = sfm::bilinear(B0, WIN0, 1 + y, 1 + x, f0x, f0y, g0x, g0y);
-        }
-    }
+    sfm::bilinear_map<kP>(B0, WIN0, 1, 1, f0x, f0y, __fsub_rn(1.0f, f0x),
+                          __fsub_rn(1.0f, f0y), tmpl, P, P, lane);
     __syncwarp();
 
     const float basex = __fsub_rn(o0x, s1x), basey = __fsub_rn(o0y, s1y);
-    sfm::lk_iterate(B1, WIN, tmpl, P, basex, basey, iters, min_det, lane, vx,
-                    vy);
+    sfm::lk_iterate<kP>(B1, WIN, WINS, M, tmpl, P, basex, basey, iters,
+                        min_det, lane, vx, vy);
 
     if (lane == 0) {
         v_out[2 * t] = vx;
         v_out[2 * t + 1] = vy;
     }
+}
+
+template <int kP>
+int launch(const float* img0, const float* img1, int H, int W,
+           const float* p0, const float* v_in, int T, int radius, int margin,
+           int iters, float min_det, float* v_out, cudaStream_t stream) {
+    const int P = 2 * radius + 1;
+    const size_t bytes = (size_t)kTracksPerBlock *
+                         fused_floats_per_track(P, margin) * sizeof(float);
+    if (bytes > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            lk_level_fused_kernel<kP>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const int blocks = (T + kTracksPerBlock - 1) / kTracksPerBlock;
+    lk_level_fused_kernel<kP><<<blocks, 32 * kTracksPerBlock, bytes,
+                                stream>>>(img0, img1, H, W, p0, v_in, T,
+                                          radius, margin, iters, min_det,
+                                          v_out);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -122,22 +164,10 @@ extern "C" int sfm_lk_level_fused(const void* img0, const void* img1, int H,
                                   int T, int radius, int margin, int iters,
                                   float min_det, void* v_out, void* stream) {
     if (T <= 0) return 0;
-    const int P = 2 * radius + 1;
-    const int WIN0 = P + 3;
-    const int WIN = P + 2 * margin + 3;
-    const size_t bytes = (size_t)kTracksPerBlock *
-                         (WIN * WIN + WIN0 * WIN0 + P * P) * sizeof(float);
-    if (bytes > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            lk_level_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)bytes);
-        if (e != cudaSuccess) return (int)e;
-    }
-    const int blocks = (T + kTracksPerBlock - 1) / kTracksPerBlock;
-    lk_level_fused_kernel<<<blocks, 32 * kTracksPerBlock, bytes,
-                            (cudaStream_t)stream>>>(
-        (const float*)img0, (const float*)img1, H, W, (const float*)p0,
-        (const float*)v_in, T, radius, margin, iters, min_det,
-        (float*)v_out);
-    return (int)cudaGetLastError();
+    return sfm::dispatch_patch(radius, [&](auto kp) {
+        return launch<decltype(kp)::value>(
+            (const float*)img0, (const float*)img1, H, W, (const float*)p0,
+            (const float*)v_in, T, radius, margin, iters, min_det,
+            (float*)v_out, (cudaStream_t)stream);
+    });
 }

@@ -14,7 +14,9 @@
 // exactly the requested one, so d is 0 by construction and there is no
 // ladder.  The loop is sfm::lk_iterate (lk_iterate.cuh), the one K3 runs:
 // the same clamp of the sub-window origin relative to the window's start,
-// the same un-clamped fraction, the same _rn arithmetic.
+// the same un-clamped fraction, the same _rn arithmetic, one bilinear map
+// per update, the patch size a template parameter (radius 1..10, other
+// sizes at run time).
 //
 // Bound: bytes.  The function's inputs are the windows and templates
 // themselves, T * (WIN^2 + P^2) * 4 B (8.4 MB at T=2200, WIN=28, P=13), plus
@@ -23,45 +25,96 @@
 // 1.45e8 float32 operations at 16 iterations).  At the card's peak rates the
 // bytes weigh slightly more; both are a few microseconds.  What the kernel
 // waits for is, as in K3, the chain of `iters` dependent updates.  Design:
-// one warp per track, window and template copied once into shared memory
-// (coalesced: a track's window is contiguous), four tracks per block.
+// one warp per track, the window copied once into shared memory with
+// 16-byte loads (a track's window is contiguous and, WIN being even,
+// 16-byte aligned) at the row stride that keeps the map's loads free of
+// bank conflicts (sfm::bank_stride), the template beside it, one map
+// buffer, sfm::kLkTracksPerBlock tracks per block.
+// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W): 0.0270 ms at
+// T=2200, P=13, 16 iterations, the same at every pyramid level (0.0489
+// ms with five bilinear reads per patch pixel); PERF.md, Findings.
+
+#include <stdint.h>
 
 #include "lk_iterate.cuh"
 
 namespace {
 
-constexpr int kTracksPerBlock = 4;
+constexpr int kTracksPerBlock = sfm::kLkTracksPerBlock;
 
+// Shared floats per track: the window, the update's map, the template.
+__host__ __device__ inline int tmpl_floats_per_track(int P, int WIN) {
+    return WIN * sfm::bank_stride(P + 2, WIN) + sfm::map_floats(P) + P * P;
+}
+
+template <int kP>
 __global__ void lk_level_tmpl_kernel(const float* __restrict__ blocks,
                                      const float* __restrict__ tmpl_in,
                                      const float* __restrict__ base,
                                      const float* __restrict__ v_in, int T,
-                                     int P, int WIN, int iters, float min_det,
+                                     int p, int WIN, int iters, float min_det,
                                      float* __restrict__ v_out) {
     extern __shared__ float smem[];
-    const int per_track = WIN * WIN + P * P;
+    const int P = kP > 0 ? kP : p;
+    const int WINS = sfm::bank_stride(P + 2, WIN);
 
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     const int t = blockIdx.x * kTracksPerBlock + warp;
     if (t >= T) return;  // whole warp leaves together
 
-    float* B1 = smem + warp * per_track;
-    float* tmpl = B1 + WIN * WIN;
+    float* B1 = smem + warp * tmpl_floats_per_track(P, WIN);
+    float* M = B1 + WIN * WINS;
+    float* tmpl = M + sfm::map_floats(P);
     const float* src = blocks + (size_t)t * WIN * WIN;
-    for (int i = lane; i < WIN * WIN; i += 32) B1[i] = src[i];
+    if ((WIN & 1) == 0 && ((uintptr_t)blocks & 15) == 0) {
+        // WIN even: WIN^2 is a multiple of 4, every window 16-B aligned
+        const float4* src4 = reinterpret_cast<const float4*>(src);
+        for (int q = lane; q < WIN * WIN / 4; q += 32) {
+            const float4 w = src4[q];
+            int r = 4 * q / WIN, c = 4 * q - r * WIN;
+            const float e[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {  // a float4 may end a row
+                B1[r * WINS + c] = e[k];
+                if (++c == WIN) { c = 0; ++r; }
+            }
+        }
+    } else {
+        for (int i = lane; i < WIN * WIN; i += 32)
+            B1[(i / WIN) * WINS + i % WIN] = src[i];
+    }
     const float* tsrc = tmpl_in + (size_t)t * P * P;
     for (int i = lane; i < P * P; i += 32) tmpl[i] = tsrc[i];
     __syncwarp();
 
     float vx = v_in[2 * t], vy = v_in[2 * t + 1];
-    sfm::lk_iterate(B1, WIN, tmpl, P, base[2 * t], base[2 * t + 1], iters,
-                    min_det, lane, vx, vy);
+    sfm::lk_iterate<kP>(B1, WIN, WINS, M, tmpl, P, base[2 * t],
+                        base[2 * t + 1], iters, min_det, lane, vx, vy);
 
     if (lane == 0) {
         v_out[2 * t] = vx;
         v_out[2 * t + 1] = vy;
     }
+}
+
+template <int kP>
+int launch(const float* blocks, const float* tmpl, const float* base,
+           const float* v_in, int T, int P, int WIN, int iters,
+           float min_det, float* v_out, cudaStream_t stream) {
+    const size_t bytes = (size_t)kTracksPerBlock *
+                         tmpl_floats_per_track(P, WIN) * sizeof(float);
+    if (bytes > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            lk_level_tmpl_kernel<kP>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const int nblocks = (T + kTracksPerBlock - 1) / kTracksPerBlock;
+    lk_level_tmpl_kernel<kP><<<nblocks, 32 * kTracksPerBlock, bytes,
+                               stream>>>(blocks, tmpl, base, v_in, T, P, WIN,
+                                         iters, min_det, v_out);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -71,18 +124,11 @@ extern "C" int sfm_lk_level_tmpl(const void* blocks, const void* tmpl,
                                  int P, int WIN, int iters, float min_det,
                                  void* v_out, void* stream) {
     if (T <= 0) return 0;
-    const size_t bytes =
-        (size_t)kTracksPerBlock * (WIN * WIN + P * P) * sizeof(float);
-    if (bytes > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            lk_level_tmpl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)bytes);
-        if (e != cudaSuccess) return (int)e;
-    }
-    const int nblocks = (T + kTracksPerBlock - 1) / kTracksPerBlock;
-    lk_level_tmpl_kernel<<<nblocks, 32 * kTracksPerBlock, bytes,
-                           (cudaStream_t)stream>>>(
-        (const float*)blocks, (const float*)tmpl, (const float*)base,
-        (const float*)v_in, T, P, WIN, iters, min_det, (float*)v_out);
-    return (int)cudaGetLastError();
+    // an even P has no radius: the run-time-P instantiation takes it
+    return sfm::dispatch_patch((P & 1) ? (P - 1) / 2 : 0, [&](auto kp) {
+        return launch<decltype(kp)::value>(
+            (const float*)blocks, (const float*)tmpl, (const float*)base,
+            (const float*)v_in, T, P, WIN, iters, min_det, (float*)v_out,
+            (cudaStream_t)stream);
+    });
 }

@@ -369,6 +369,32 @@ def test_torch_lk_level_tmpl_plain_matches_lk_iter_pallas(rng):
     assert np.median(np.abs(out - np.array([-3.0, 2.0]))) < 0.05
 
 
+@pytest.mark.parametrize("radius", [3, 5, 6, 10])
+def test_torch_lk_one_map_is_the_five_reads(rng, radius):
+    """The identity the LK kernels' loop rests on (csrc/lk_iterate.cuh):
+    one (P+2)^2 bilinear map at pixel offset (-1, -1), cut at the five
+    offsets, is bit for bit each of the five ``_bil_t`` reads of the plain
+    version (cur and the four gradient neighbours) - for fractions in
+    [0, 1), extrapolated to -3 and 12, and NaN."""
+    P = 2 * radius + 1
+    T = 48
+    sub = t32(rng.standard_normal((T, P + 3, P + 3)) * 60 + 128)
+    f = rng.uniform(0.0, 1.0, (T, 2)).astype(np.float32)
+    f[:4] = [[-3.0, 12.0], [12.0, -3.0], [-3.0, -3.0], [12.0, 12.0]]
+    f[4] = np.nan
+    f[5, 0] = np.nan
+    fx, fy = t32(f[:, 0]), t32(f[:, 1])
+    m = lk_kernels._bil_t(sub, fx, fy, P + 2, -1, -1)
+    assert m.shape == (T, P + 2, P + 2)
+    for ox, oy in ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1)):
+        cut = m[:, 1 + oy:1 + oy + P, 1 + ox:1 + ox + P]
+        ref = lk_kernels._bil_t(sub, fx, fy, P, ox, oy)
+        nan = torch.isnan(ref)
+        assert torch.equal(torch.isnan(cut), nan)
+        assert bool(nan[4:6].all()) and not bool(nan[6:].any())
+        assert torch.equal(cut[~nan], ref[~nan])
+
+
 def test_torch_lk_level_nan_positions(rng, monkeypatch):
     """40 % NaN positions (dead slots): valid tracks stay finite and agree
     with JAX; NaN slots are free to return garbage, but nothing raises and
@@ -562,20 +588,25 @@ def test_torch_kernels_match_plain_on_card(rng):
     pts = torch.as_tensor(rng.uniform(30, [130, 90], (100, 2)),
                           dtype=torch.float32, device=dev)
     v0 = torch.zeros_like(pts)
-    out = lk_kernels.lk_level_fused(a, b, pts, v0, 8, 6, 1e-4)
-    ref = lk_kernels.lk_level_plain(a, b, pts, v0, 8, 6, 1e-4)
-    assert float((out - ref).abs().max()) <= 1e-4
-    # K5 (bit-exact, garbage starts included) and K4 on K5's windows
+    # K5 (bit-exact, garbage starts included)
     st = torch.as_tensor(rng.integers(-40, 200, (100, 2)),
                          dtype=torch.int32, device=dev)
     st[0] = torch.tensor([-2**31, 2**31 - 1], dtype=torch.int32)
     assert torch.equal(lk_kernels.lk_gather(b, st, 28),
                        lk_kernels.lk_gather_plain(b, st, 28))
-    o0 = pts - 6
-    blk0, a0 = lk_kernels._load_blocks(a, o0, 13, 0, lk_kernels.lk_gather)
-    tmpl = lk_kernels.template_patch(blk0, a0, o0, 13)
-    blk1, a1 = lk_kernels._load_blocks(b, o0, 13, lk_kernels.MARGIN,
-                                       lk_kernels.lk_gather)
-    out = lk_kernels.lk_level_tmpl(blk1, tmpl, o0 - a1, v0, 8, 1e-4)
-    ref = lk_kernels.lk_level_tmpl_plain(blk1, tmpl, o0 - a1, v0, 8, 1e-4)
-    assert float((out - ref).abs().max()) <= 1e-4
+    # K3, and K4 on K5's windows, at the default config's radius (P = 11)
+    # and the bench's (P = 13)
+    for radius in (5, 6):
+        P = 2 * radius + 1
+        out = lk_kernels.lk_level_fused(a, b, pts, v0, 8, radius, 1e-4)
+        ref = lk_kernels.lk_level_plain(a, b, pts, v0, 8, radius, 1e-4)
+        assert float((out - ref).abs().max()) <= 1e-4, radius
+        o0 = pts - radius
+        blk0, a0 = lk_kernels._load_blocks(a, o0, P, 0, lk_kernels.lk_gather)
+        tmpl = lk_kernels.template_patch(blk0, a0, o0, P)
+        blk1, a1 = lk_kernels._load_blocks(b, o0, P, lk_kernels.MARGIN,
+                                           lk_kernels.lk_gather)
+        out = lk_kernels.lk_level_tmpl(blk1, tmpl, o0 - a1, v0, 8, 1e-4)
+        ref = lk_kernels.lk_level_tmpl_plain(blk1, tmpl, o0 - a1, v0, 8,
+                                             1e-4)
+        assert float((out - ref).abs().max()) <= 1e-4, radius
