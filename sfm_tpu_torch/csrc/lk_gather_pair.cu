@@ -8,43 +8,144 @@
 //
 // For every track t: out0[t] = img0[sy0:sy0+win0, sx0:sx0+win0] and, in the
 // pair mode, out1[t] = img1[sy1:sy1+win1, sx1:sx1+win1], starts clamped
-// in-kernel.  The TPU kernels return blocks that are 8 or 16 rows taller,
-// anchored at an aligned row below the request, because Mosaic cannot slice
-// a VMEM tile at a per-track row; a CUDA thread simply computes its own
-// address, so the output is exactly the requested window and the only
-// anchor is the clamped start.
+// in-kernel (sfm::clamp_start, INT_MIN/INT_MAX included).  The TPU kernels
+// return blocks that are 8 or 16 rows taller, anchored at an aligned row
+// below the request, because Mosaic cannot slice a VMEM tile at a
+// per-track row; a CUDA thread simply computes its own address, so the
+// output is exactly the requested window and the only anchor is the
+// clamped start.
 //
 // Bound: bytes.  The image(s) read once and T * win^2 * 4 B written per
-// image (6.9 MB for one image at T=2200, win 28; neighbouring windows
-// overlap, so the image's bytes are read mostly from L2); no arithmetic.
-// That is a few microseconds of HBM time, so the launch itself dominates.
-// Design: one block of 128 threads per track, consecutive threads on
-// consecutive columns of a row so that each row of a window is one or two
-// 128-byte transactions.
-//
-// The fused level kernel does not call this kernel: it gathers with the same
-// device function (lk_common.cuh) straight into shared memory.
+// image (6.9 MB for one image at T=2200, win 28: 2.06 us at 3.35 TB/s;
+// neighbouring windows overlap, so the image's bytes come mostly from L2);
+// no arithmetic.  What held the first kernel back: one block of 128
+// threads per track (2200 blocks against 2112 resident at 16 a SM, so a
+// tail wave), and a copy loop with a run-time division by the width and
+// one 4-byte load in flight per thread per trip.  Design:
+//   - one warp per track, 1 (K5) or 2 (K2) tracks a block: at T=2200,
+//     2200 or 1100 blocks, all resident at once (32 blocks an SM);
+//   - the width a template parameter for every width the port gathers
+//     (P+3 and P+2*MARGIN+3 for radius 1..sfm::kLkMaxRadius: the even
+//     widths 6..36); any other width, or an output that is not 16-byte
+//     aligned, runs the run-time-width instantiation;
+//   - a lane owns float4 chunks of the window's win^2 contiguous output
+//     floats (an even width makes win^2 a multiple of 4) and issues the
+//     loads of all its chunks before its first store; the stores are
+//     16 bytes a lane, consecutive lanes on consecutive chunks.
+// K3 gathers its windows itself (sfm::load_window_async, lk_common.cuh)
+// and does not call this kernel.
+// Measured (chip_smoke.py --only kernels; NVIDIA H100 80GB HBM3, 700 W):
+// K5 0.00463 ms at T=2200, win 28 (the first kernel: 0.0066 ms; one
+// PyTorch call, unfold(...)[sy, sx], 0.0122 ms; a 6.9 MB fill_ 0.0035
+// ms), K2 0.00529 ms at win 16 + 28 (first kernel: 0.0085 ms); PERF.md,
+// Findings.
+
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "lk_common.cuh"
+#include "lk_iterate.cuh"
 
 namespace {
 
-template <bool kPair>
-__global__ void lk_gather_kernel(const float* __restrict__ img0,
-                                 const float* __restrict__ img1, int H, int W,
-                                 const int* __restrict__ starts0,
-                                 const int* __restrict__ starts1, int T,
-                                 int win0, int win1, float* __restrict__ out0,
-                                 float* __restrict__ out1) {
-    int t = blockIdx.x;
-    if (t >= T) return;
-    sfm::load_window(img0, H, W, starts0[2 * t], starts0[2 * t + 1], win0,
-                     out0 + (size_t)t * win0 * win0, win0, threadIdx.x,
-                     blockDim.x);
-    if (kPair)
-        sfm::load_window(img1, H, W, starts1[2 * t], starts1[2 * t + 1], win1,
-                         out1 + (size_t)t * win1 * win1, win1, threadIdx.x,
-                         blockDim.x);
+// Tracks (warps) a block: one-image windows 1, pairs 2 (on an H100 each
+// beat 1, 2 and 4 by 3-28 %; PERF.md, Findings).
+__host__ __device__ constexpr int tracks_per_block(bool pair) {
+    return pair ? 2 : 1;
+}
+constexpr int kMargin = 6;  // lk_kernels.MARGIN: search width P + 2*kMargin + 3
+constexpr int kMinWin = 2 * 1 + 1 + 3;
+constexpr int kMaxWin = 2 * sfm::kLkMaxRadius + 1 + 2 * kMargin + 3;
+
+// One warp copies the win x win window of img at the start (sx, sy),
+// clamped here, to the win^2 contiguous floats at dst.  kWin > 0 (even):
+// win = kWin at compile time and dst 16-byte aligned; kWin = 0: win at run
+// time.
+template <int kWin>
+__device__ __forceinline__ void gather_window(const float* __restrict__ img,
+                                              int H, int W, int sx, int sy,
+                                              int win,
+                                              float* __restrict__ dst,
+                                              int lane) {
+    sx = sfm::clamp_start(sx, W, win);
+    sy = sfm::clamp_start(sy, H, win);
+    const float* src = img + (size_t)sy * W + sx;
+    if constexpr (kWin > 0) {
+        static_assert(kWin % 2 == 0, "win^2 must be whole float4s");
+        constexpr int n4 = kWin * kWin / 4;
+        constexpr int kSlots = (n4 + 31) / 32;
+        float4 v[kSlots];
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+            const int q = lane + 32 * k;
+            if (q < n4) {
+                // chunk q is window row r, columns c .. c+3; where the
+                // width is not a multiple of 4, its last two may be
+                // columns 0, 1 of row r+1
+                const int r = 4 * q / kWin, c = 4 * q - r * kWin;
+                const float* a = src + (size_t)r * W + c;
+                float e[4];
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                    e[u] = kWin % 4 == 0 || c + u < kWin ? a[u]
+                                                         : a[u + W - kWin];
+                v[k] = make_float4(e[0], e[1], e[2], e[3]);
+            }
+        }
+        float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+            const int q = lane + 32 * k;
+            if (q < n4) d4[q] = v[k];
+        }
+    } else {
+        for (int i = lane; i < win * win; i += 32)
+            dst[i] = src[(size_t)(i / win) * W + i % win];
+    }
+}
+
+template <bool kPair, int kWin0, int kWin1>
+__global__ void __launch_bounds__(32 * tracks_per_block(kPair))
+    lk_gather_kernel(const float* __restrict__ img0,
+                     const float* __restrict__ img1, int H, int W,
+                     const int* __restrict__ starts0,
+                     const int* __restrict__ starts1, int T, int win0,
+                     int win1, float* __restrict__ out0,
+                     float* __restrict__ out1) {
+    const int lane = threadIdx.x & 31;
+    const int t = blockIdx.x * tracks_per_block(kPair) + (threadIdx.x >> 5);
+    if (t >= T) return;  // whole warp leaves together
+    gather_window<kWin0>(img0, H, W, starts0[2 * t], starts0[2 * t + 1],
+                         win0, out0 + (size_t)t * win0 * win0, lane);
+    if constexpr (kPair)
+        gather_window<kWin1>(img1, H, W, starts1[2 * t], starts1[2 * t + 1],
+                             win1, out1 + (size_t)t * win1 * win1, lane);
+}
+
+template <bool kPair, int kWin0, int kWin1>
+int launch(const float* img0, const float* img1, int H, int W,
+           const int* starts0, const int* starts1, int T, int win0, int win1,
+           float* out0, float* out1, cudaStream_t stream) {
+    constexpr int kTracks = tracks_per_block(kPair);
+    lk_gather_kernel<kPair, kWin0, kWin1>
+        <<<(T + kTracks - 1) / kTracks, 32 * kTracks, 0, stream>>>(
+            img0, img1, H, W, starts0, starts1, T, win0, win1, out0, out1);
+    return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// Calls f(std::integral_constant<int, kW>{}) with kW = win for an even win
+// in [kMinWin, kMaxWin], and with kW = 0 for any other win.
+template <int kW = kMinWin, class F>
+int dispatch_width(int win, F&& f) {
+    if constexpr (kW > kMaxWin) {
+        return f(std::integral_constant<int, 0>{});
+    } else {
+        if (win == kW) return f(std::integral_constant<int, kW>{});
+        return dispatch_width<kW + 2>(win, f);
+    }
 }
 
 }  // namespace
@@ -55,18 +156,35 @@ extern "C" int sfm_lk_gather_pair(const void* img0, const void* img1, int H,
                                   int win1, void* out0, void* out1,
                                   void* stream) {
     if (T <= 0) return 0;
-    lk_gather_kernel<true><<<T, 128, 0, (cudaStream_t)stream>>>(
-        (const float*)img0, (const float*)img1, H, W, (const int*)starts0,
-        (const int*)starts1, T, win0, win1, (float*)out0, (float*)out1);
-    return (int)cudaGetLastError();
+    auto go = [&](auto kw0, auto kw1) {
+        return launch<true, decltype(kw0)::value, decltype(kw1)::value>(
+            (const float*)img0, (const float*)img1, H, W,
+            (const int*)starts0, (const int*)starts1, T, win0, win1,
+            (float*)out0, (float*)out1, (cudaStream_t)stream);
+    };
+    using Zero = std::integral_constant<int, 0>;
+    // the LK pair: template width P+3, search width P+2*kMargin+3
+    if (win1 != win0 + 2 * kMargin || !aligned16(out0) || !aligned16(out1))
+        return go(Zero{}, Zero{});
+    return sfm::dispatch_patch((win0 - 3) / 2, [&](auto kp) {
+        constexpr int P = decltype(kp)::value;
+        if constexpr (P == 0) {
+            return go(Zero{}, Zero{});
+        } else {
+            if (win0 != P + 3) return go(Zero{}, Zero{});
+            return go(std::integral_constant<int, P + 3>{},
+                      std::integral_constant<int, P + 2 * kMargin + 3>{});
+        }
+    });
 }
 
 extern "C" int sfm_lk_gather(const void* img, int H, int W,
                              const void* starts, int T, int win, void* out,
                              void* stream) {
     if (T <= 0) return 0;
-    lk_gather_kernel<false><<<T, 128, 0, (cudaStream_t)stream>>>(
-        (const float*)img, nullptr, H, W, (const int*)starts, nullptr, T, win,
-        0, (float*)out, nullptr);
-    return (int)cudaGetLastError();
+    return dispatch_width(aligned16(out) ? win : 0, [&](auto kw) {
+        return launch<false, decltype(kw)::value, 0>(
+            (const float*)img, nullptr, H, W, (const int*)starts, nullptr, T,
+            win, 0, (float*)out, nullptr, (cudaStream_t)stream);
+    });
 }

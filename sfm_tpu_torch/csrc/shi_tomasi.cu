@@ -10,100 +10,244 @@
 // kernel and plain version agree on the whole map and not only inside.
 //
 // Bound: bytes.  One read of the image and one write of the map
-// (2 x 1.2 MB at 640x480: under a microsecond of HBM time); the arithmetic
-// is ~40 flops a pixel.  The plain version makes some fifteen passes over
-// device memory.  Design: one block per 32x16 output tile; the tile with a
-// halo of r+1 goes to shared memory once, the three products are formed on
-// the r-haloed tile, box-summed separably (rows, then columns) in shared
-// memory, and only the response is written.  The summation order of the box
-// sums is the plain version's (centre, then -d, +d outward), so the two
-// differ only where the compiler may not reorder: nowhere; products and sums
-// use the _rn intrinsics to rule out fma contraction.
+// (2 x 1.2 MB at 640x480: 0.73 us of HBM time); the arithmetic is ~50
+// flops a pixel at r = 3 (0.23 us at the float32 peak).  What held the
+// first kernel back was latency and instruction issue, not either bound:
+// one block per 32x16 tile (600 blocks of 512 threads, two waves at
+// 640x480), four phases between three barriers with run-time tile widths
+// and radius, ~45 shared-memory accesses per pixel.  Design:
+//   - the radius is a template parameter (1..kMaxRadius): every loop below
+//     has a compile-time trip count and unrolls;
+//   - a block is four warps over a 64x20 output tile (240 blocks at
+//     640x480, at most two an SM, all resident at once); lane l of every
+//     warp owns output columns x0 + 2l and x0 + 2l + 1, and each warp
+//     walks down kRows rows of them;
+//   - the image tile with its halo (r+1 rows, r+1 columns rounded up to 4)
+//     is staged in shared memory once, in 16-byte chunks where the image's
+//     width and base allow (each chunk then lies wholly inside or outside
+//     the image), at the dense row stride: every access below is a run of
+//     consecutive words, so no stride has fewer bank conflicts;
+//   - per image row the warp forms the three gradient products of the
+//     row's 64 + 2r columns, branch-free (the column tests are made once),
+//     into a small double-buffered row of shared memory (one __syncwarp a
+//     row); each lane reads the 2r + 2 products its two columns need as
+//     float2s and sums each column's 2r + 1;
+//   - the last 2r+1 row sums of its columns stay in the lane's registers
+//     (the row loop is unrolled, so the ring's indices are constants): the
+//     column sums never pass through shared memory.
+// Summation order is the plain version's: products __fmul_rn, rows first,
+// then columns, each centre, then -d, +d outward with __fadd_rn; the
+// response with _rn operations.  Kernel and plain version agree bit for
+// bit on the whole map.
+// Measured (chip_smoke.py --only kernels; NVIDIA H100 80GB HBM3, 700 W):
+// 0.00644 ms at 640x480, r = 3 (the first kernel: 0.0105 ms); a launch
+// alone takes ~0.0021 ms there.  It issues ~2400 instructions a warp at
+// r = 3 (of which 684 FADD fixed by the order above), so the SMs that hold
+// two blocks issue for ~2.4 us (PERF.md, Findings).
+
+#include <stdint.h>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TW = 32;
-constexpr int TH = 16;
+constexpr int kWarps = 4;           // warps per block, stacked down the tile
+constexpr int kRows = 5;            // output rows each warp walks
+constexpr int TW = 64;              // tile width: two output columns a lane
+constexpr int TH = kWarps * kRows;  // tile height
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxRadius = 8;       // shi_tomasi_kernel.MAX_RADIUS
 
-__global__ void shi_tomasi_kernel(const float* __restrict__ img, int H, int W,
-                                  int r, float* __restrict__ out) {
-    extern __shared__ float smem[];
-    const int IW = TW + 2 * r + 2, IH = TH + 2 * r + 2;  // image tile
-    const int PW = TW + 2 * r, PH = TH + 2 * r;          // product tile
-    float* simg = smem;                // IH x IW
-    float* pxx = simg + IH * IW;       // PH x PW
-    float* pxy = pxx + PH * PW;
-    float* pyy = pxy + PH * PW;
-    float* hxx = pyy + PH * PW;        // PH x TW  (row sums)
-    float* hxy = hxx + PH * TW;
-    float* hyy = hxy + PH * TW;
+// The staged tile of radius R: image rows y0-R-1 .. y0+TH+R and columns
+// x0-A .. x0+TW+A-1, A = R+1 rounded up to a multiple of 4.
+template <int R>
+struct Tile {
+    static constexpr int A = (R + 4) / 4 * 4;
+    static constexpr int SW = TW + 2 * A;      // row stride (dense)
+    static constexpr int SH = TH + 2 * R + 2;
+    static constexpr int PW = TW + 2 * R;      // products per warp row
+    static constexpr int kSlots = (PW + 31) / 32;  // product slots a lane
+    static constexpr int kSteps = kRows + 2 * R;   // rows a warp sums
+    static constexpr int kRing = 2 * R + 1;        // row sums a column keeps
+};
+
+// Stages image rows ys.. and columns xs.. of the tile into s (zeros
+// outside the image: no product that counts reads them).  Every load is
+// issued before the first store.
+template <int R>
+__device__ __forceinline__ void stage_tile(const float* __restrict__ img,
+                                           int H, int W, int xs, int ys,
+                                           float* __restrict__ s, int tid) {
+    using G = Tile<R>;
+    if ((W & 3) == 0 && ((uintptr_t)img & 15) == 0) {
+        // W and xs multiples of 4: each 16-byte chunk is wholly inside or
+        // wholly outside the image
+        constexpr int C4 = G::SW / 4, N = G::SH * C4;
+        constexpr int kSlots = (N + kThreads - 1) / kThreads;
+        float4 v[kSlots];
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+            const int i = tid + kThreads * k;
+            const int r = i / C4, x = xs + 4 * (i - r * C4), y = ys + r;
+            v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (i < N && y >= 0 && y < H && x >= 0 && x < W)
+                v[k] = *reinterpret_cast<const float4*>(img + (size_t)y * W +
+                                                        x);
+        }
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+            const int i = tid + kThreads * k;
+            if (i < N) reinterpret_cast<float4*>(s)[i] = v[k];
+        }
+    } else {
+        constexpr int N = G::SH * G::SW;
+        constexpr int kSlots = (N + kThreads - 1) / kThreads;
+        float v[kSlots];
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+            const int i = tid + kThreads * k;
+            const int r = i / G::SW, x = xs + (i - r * G::SW), y = ys + r;
+            v[k] = 0.f;
+            if (i < N && y >= 0 && y < H && x >= 0 && x < W)
+                v[k] = img[(size_t)y * W + x];
+        }
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+            const int i = tid + kThreads * k;
+            if (i < N) s[i] = v[k];
+        }
+    }
+}
+
+// acc = x[R], then acc = (acc + x[R-d]) + x[R+d] for d = 1..R: the plain
+// version's order of a (2R+1)-term box sum centred on x[R].
+template <int R>
+__device__ __forceinline__ float box_sum(const float* x) {
+    float acc = x[R];
+#pragma unroll
+    for (int d = 1; d <= R; ++d)
+        acc = __fadd_rn(__fadd_rn(acc, x[R - d]), x[R + d]);
+    return acc;
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+    shi_tomasi_kernel(const float* __restrict__ img, int H, int W,
+                      float* __restrict__ out) {
+    using G = Tile<R>;
+    __shared__ __align__(16) float simg[G::SH * G::SW];
+    __shared__ __align__(16) float prod[kWarps][2][3][G::PW];
 
     const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    const int nth = blockDim.x * blockDim.y;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    stage_tile<R>(img, H, W, x0 - G::A, y0 - R - 1, simg, tid);
 
-    // 1. image tile with halo r+1 (zeros outside: never used by a product
-    //    that counts, see step 2)
-    for (int i = tid; i < IH * IW; i += nth) {
-        int ly = i / IW, lx = i - ly * IW;
-        int y = y0 - r - 1 + ly, x = x0 - r - 1 + lx;
-        simg[i] = (y >= 0 && y < H && x >= 0 && x < W)
-                      ? img[(size_t)y * W + x] : 0.0f;
+    // product slot k of this lane is column x0 - R + lane + 32 k: whether
+    // it lies in the image, and whether it has a central difference in x
+    bool in_x[G::kSlots], int_x[G::kSlots];
+#pragma unroll
+    for (int k = 0; k < G::kSlots; ++k) {
+        const int cx = x0 - R + lane + 32 * k;
+        in_x[k] = cx >= 0 && cx < W;
+        int_x[k] = cx >= 1 && cx <= W - 2;
     }
     __syncthreads();
 
-    // 2. gradient products on the r-haloed tile; zero outside the image
-    //    (the box filter's zero padding), zero gradient on border pixels
-    for (int i = tid; i < PH * PW; i += nth) {
-        int ly = i / PW, lx = i - ly * PW;
-        int y = y0 - r + ly, x = x0 - r + lx;
-        float gx = 0.0f, gy = 0.0f;
-        if (y >= 0 && y < H && x >= 0 && x < W) {
-            const float* c = simg + (ly + 1) * IW + (lx + 1);
-            if (x >= 1 && x <= W - 2)
-                gx = __fmul_rn(0.5f, __fsub_rn(c[1], c[-1]));
-            if (y >= 1 && y <= H - 2)
-                gy = __fmul_rn(0.5f, __fsub_rn(c[IW], c[-IW]));
+    const int yb = y0 + warp * kRows;  // the warp's first output row
+    const int x = x0 + 2 * lane;       // the lane's output columns x, x+1
+    float h[3][2][G::kRing];           // row sums at x, x+1; ring of steps
+#pragma unroll
+    for (int j = 0; j < G::kSteps; ++j) {
+        const int y = yb - R + j;  // the image row this step sums
+        const bool in_y = y >= 0 && y < H, int_y = y >= 1 && y <= H - 2;
+        float(*P)[G::PW] = prod[warp][j & 1];
+        // staged (y, x0 - R)
+        const float* s = simg + (warp * kRows + j + 1) * G::SW + (G::A - R);
+        // 1. gradient products of row y at columns x0 - R + m; zero
+        //    outside the image, zero gradient on its border pixels
+#pragma unroll
+        for (int k = 0; k < G::kSlots; ++k) {
+            const int m = lane + 32 * k;
+            if (32 * (k + 1) <= G::PW || m < G::PW) {
+                const float* c = s + m;
+                const float gx =
+                    in_y && int_x[k]
+                        ? __fmul_rn(0.5f, __fsub_rn(c[1], c[-1])) : 0.f;
+                const float gy =
+                    int_y && in_x[k]
+                        ? __fmul_rn(0.5f, __fsub_rn(c[G::SW], c[-G::SW]))
+                        : 0.f;
+                P[0][m] = __fmul_rn(gx, gx);
+                P[1][m] = __fmul_rn(gx, gy);
+                P[2][m] = __fmul_rn(gy, gy);
+            }
         }
-        pxx[i] = __fmul_rn(gx, gx);
-        pxy[i] = __fmul_rn(gx, gy);
-        pyy[i] = __fmul_rn(gy, gy);
+        // the other buffer was last read a step ago, before that step's
+        // __syncwarp, so one barrier a step orders both
+        __syncwarp();
+        // 2. row sums of row y at columns x and x+1 (products 2 lane ..
+        //    2 lane + 2R + 1, read as float2)
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+            const float2* p2 =
+                reinterpret_cast<const float2*>(P[ch] + 2 * lane);
+            float w[2 * R + 2];
+#pragma unroll
+            for (int i = 0; i <= R; ++i) {
+                const float2 t = p2[i];
+                w[2 * i] = t.x;
+                w[2 * i + 1] = t.y;
+            }
+            h[ch][0][j % G::kRing] = box_sum<R>(w);
+            h[ch][1][j % G::kRing] = box_sum<R>(w + 1);
+        }
+        // 3. once 2R+1 rows are summed: the column sums of output row
+        //    y - R (its rows are steps j - 2R .. j) and the response
+        if (j >= 2 * R) {
+            const int yo = y - R;
+            float e[2];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                float col[3][G::kRing];
+#pragma unroll
+                for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+                    for (int i = 0; i < G::kRing; ++i)
+                        col[ch][i] = h[ch][q][(j - 2 * R + i) % G::kRing];
+                const float a = box_sum<R>(col[0]), b = box_sum<R>(col[1]),
+                            cc = box_sum<R>(col[2]);
+                const float tr = __fadd_rn(a, cc);
+                const float det =
+                    __fsub_rn(__fmul_rn(a, cc), __fmul_rn(b, b));
+                float disc =
+                    __fsub_rn(__fmul_rn(tr, tr), __fmul_rn(4.0f, det));
+                disc = __fsqrt_rn(fmaxf(disc, 0.0f));
+                e[q] = __fmul_rn(0.5f, __fsub_rn(tr, disc));
+            }
+            if (yo < H) {
+                float* o = out + (size_t)yo * W + x;
+                if ((W & 1) == 0 && x + 1 < W) {  // 8-byte aligned
+                    *reinterpret_cast<float2*>(o) = make_float2(e[0], e[1]);
+                } else {
+                    if (x < W) o[0] = e[0];
+                    if (x + 1 < W) o[1] = e[1];
+                }
+            }
+        }
     }
-    __syncthreads();
+}
 
-    // 3. row sums: h[c] = x[c] + x[c-1] + x[c+1] + x[c-2] + x[c+2] + ...
-    for (int i = tid; i < PH * TW; i += nth) {
-        int ly = i / TW, lx = i - ly * TW;
-        int c = ly * PW + lx + r;
-        float sxx = pxx[c], sxy = pxy[c], syy = pyy[c];
-        for (int d = 1; d <= r; ++d) {
-            sxx = __fadd_rn(__fadd_rn(sxx, pxx[c - d]), pxx[c + d]);
-            sxy = __fadd_rn(__fadd_rn(sxy, pxy[c - d]), pxy[c + d]);
-            syy = __fadd_rn(__fadd_rn(syy, pyy[c - d]), pyy[c + d]);
-        }
-        hxx[i] = sxx;
-        hxy[i] = sxy;
-        hyy[i] = syy;
-    }
-    __syncthreads();
-
-    // 4. column sums and the response
-    const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
-    if (x < W && y < H) {
-        int c = (threadIdx.y + r) * TW + threadIdx.x;
-        float a = hxx[c], b = hxy[c], cc = hyy[c];
-        for (int d = 1; d <= r; ++d) {
-            a = __fadd_rn(__fadd_rn(a, hxx[c - d * TW]), hxx[c + d * TW]);
-            b = __fadd_rn(__fadd_rn(b, hxy[c - d * TW]), hxy[c + d * TW]);
-            cc = __fadd_rn(__fadd_rn(cc, hyy[c - d * TW]), hyy[c + d * TW]);
-        }
-        float tr = __fadd_rn(a, cc);
-        float det = __fsub_rn(__fmul_rn(a, cc), __fmul_rn(b, b));
-        float disc = __fsub_rn(__fmul_rn(tr, tr), __fmul_rn(4.0f, det));
-        disc = __fsqrt_rn(fmaxf(disc, 0.0f));
-        out[(size_t)y * W + x] = __fmul_rn(0.5f, __fsub_rn(tr, disc));
+// Launches the instantiation of radius r (1..kMaxRadius).
+template <int R = 1>
+int launch(int r, const float* img, int H, int W, float* out,
+           cudaStream_t stream) {
+    if constexpr (R > kMaxRadius) {
+        return (int)cudaErrorInvalidValue;
+    } else {
+        if (r != R) return launch<R + 1>(r, img, H, W, out, stream);
+        dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+        shi_tomasi_kernel<R><<<grid, kThreads, 0, stream>>>(img, H, W, out);
+        return (int)cudaGetLastError();
     }
 }
 
@@ -112,19 +256,6 @@ __global__ void shi_tomasi_kernel(const float* __restrict__ img, int H, int W,
 extern "C" int sfm_shi_tomasi(const void* img, int H, int W, int r, void* out,
                               void* stream) {
     if (H <= 0 || W <= 0) return 0;
-    const int IW = TW + 2 * r + 2, IH = TH + 2 * r + 2;
-    const int PW = TW + 2 * r, PH = TH + 2 * r;
-    const size_t bytes =
-        (size_t)(IH * IW + 3 * PH * PW + 3 * PH * TW) * sizeof(float);
-    if (bytes > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            shi_tomasi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)bytes);
-        if (e != cudaSuccess) return (int)e;
-    }
-    dim3 block(TW, TH);
-    dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-    shi_tomasi_kernel<<<grid, block, bytes, (cudaStream_t)stream>>>(
-        (const float*)img, H, W, r, (float*)out);
-    return (int)cudaGetLastError();
+    return launch(r, (const float*)img, H, W, (float*)out,
+                  (cudaStream_t)stream);
 }

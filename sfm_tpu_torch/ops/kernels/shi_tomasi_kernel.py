@@ -18,7 +18,7 @@ from sfm_tpu_torch.ops.kernels import build
 
 launches = 0  # kernel launches made by shi_tomasi_score (plain int)
 
-MAX_RADIUS = 8  # shared-memory tile budget of the kernel
+MAX_RADIUS = 8  # the kernel is compiled for radius 1..MAX_RADIUS
 
 
 def shi_tomasi_score_plain(img, block_radius: int = 2):

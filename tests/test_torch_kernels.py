@@ -10,8 +10,10 @@ The kernels themselves are held to the plain versions on the card by
 here.
 """
 
+import importlib.util
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -336,6 +338,31 @@ def test_torch_lk_gather_plain_matches_load_blocks_pallas(rng):
             starts), WIN).numpy())
 
 
+def _chip_smoke():
+    """chip_smoke.py at the repository's root, loaded by path."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("win", [6, 28, 39])
+def test_torch_lk_gather_library_call_is_plain(rng, win):
+    """The one PyTorch call that chip_smoke.py times beside K5
+    (``lk_gather_library``: every window as a strided view, one
+    aten::index at starts clamped beforehand) gathers exactly what K5's
+    plain version does, on garbage starts and INT_MIN/INT_MAX, so its
+    ``library_ms`` times the same function."""
+    cs = _chip_smoke()
+    H, W = 60, 80
+    img = t32(make_textured(rng, H, W))
+    st = torch.as_tensor(cs.garbage_starts(rng, H, W, win, 64))
+    sx, sy = lk_kernels._clamp_starts(st, H, W, win)
+    assert torch.equal(cs.lk_gather_library(img, sx, sy, win),
+                       lk_kernels.lk_gather_plain(img, st, win))
+
+
 def test_torch_lk_level_tmpl_plain_matches_lk_iter_pallas(rng):
     """K4's plain version against lk_iter_pallas (interpret mode) on the
     same windows and template: the TPU kernel's raw aligned blocks with
@@ -582,18 +609,30 @@ def test_torch_kernels_match_plain_on_card(rng):
     dev = torch.device("cuda")
     a = torch.as_tensor(make_textured(rng, 120, 160), device=dev)
     b = torch.roll(a, (2, -3), (0, 1)).contiguous()
-    out = shi_tomasi_kernel.shi_tomasi_score(a, 3)
-    ref = shi_tomasi_kernel.shi_tomasi_score_plain(a, 3)
-    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    # K1 bit for bit at every radius the port uses and the ends of its
+    # range, on whole and partial 32x32 tiles
+    for img in (a, torch.as_tensor(make_textured(rng, 61, 83), device=dev)):
+        for r in (1, 2, 3, 8):
+            out = shi_tomasi_kernel.shi_tomasi_score(img, r)
+            ref = shi_tomasi_kernel.shi_tomasi_score_plain(img, r)
+            assert torch.equal(out, ref), (tuple(img.shape), r)
     pts = torch.as_tensor(rng.uniform(30, [130, 90], (100, 2)),
                           dtype=torch.float32, device=dev)
     v0 = torch.zeros_like(pts)
-    # K5 (bit-exact, garbage starts included)
+    # K5 and K2 bit for bit, garbage starts included, at the widths of LK
+    # radius 1, 3, 6 and 10 and at one width outside the compiled set
     st = torch.as_tensor(rng.integers(-40, 200, (100, 2)),
                          dtype=torch.int32, device=dev)
     st[0] = torch.tensor([-2**31, 2**31 - 1], dtype=torch.int32)
-    assert torch.equal(lk_kernels.lk_gather(b, st, 28),
-                       lk_kernels.lk_gather_plain(b, st, 28))
+    m = lk_kernels.MARGIN
+    for w0, w1 in ((6, 6 + 2 * m), (10, 10 + 2 * m), (16, 16 + 2 * m),
+                   (24, 24 + 2 * m), (17, 17 + 2 * m)):
+        for w in (w0, w1):
+            assert torch.equal(lk_kernels.lk_gather(b, st, w),
+                               lk_kernels.lk_gather_plain(b, st, w)), w
+        got = lk_kernels.lk_gather_pair(a, st, w0, b, st.flip(0), w1)
+        want = lk_kernels.lk_gather_pair_plain(a, st, w0, b, st.flip(0), w1)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), (w0, w1)
     # K3, and K4 on K5's windows, at the default config's radius (P = 11)
     # and the bench's (P = 13)
     for radius in (5, 6):

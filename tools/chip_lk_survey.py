@@ -4,8 +4,11 @@
 * ``--seeds S ...``: ``chip_smoke.py``'s check at the radii ``RADII_EXTRA``
   (``check_lk_level_radii``: ``T_RADII`` tracks, the rules and tolerances
   of the full-size check) on the inputs of each seed; one JSON line per
-  seed says which kernel and radius passed, with the share of border
-  tracks the rules call stable.
+  seed says which kernel and radius passed, with the border tracks on
+  which the kernel ends more than 1e-3 px from the plain version beside
+  those on which the plain version's own perturbations move it that far
+  (the rules ask the first to be at most the second), and the count for
+  each of those perturbations alone.
 * ``--against DIR``: the flows of this tree's kernels and of the kernels of
   the tree ``DIR`` (another commit, unpacked with ``git archive``), on the
   same inputs - for each seed, the inputs of the radii check (the same
@@ -54,7 +57,7 @@ def survey(seeds: list[int]) -> None:
     cs = chip_smoke()
     dev = torch.device("cuda", 0)
     pyr0, pyr1 = cs.lk_inputs(dev, np.random.default_rng(0))
-    keys = ("radius", "ok", "min_border_stable_frac", "max_abs_err",
+    keys = ("radius", "ok", "border_far", "border_far_by", "max_abs_err",
             "max_abs_err_border", "max_step_excess")
     for seed in seeds:
         line = {"seed": seed}
