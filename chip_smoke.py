@@ -23,7 +23,15 @@ Phases, one JSON line each on standard output:
             SFM_TPU_LK_FUSED=0, and on a pair of unequal shapes; then an
             8-frame prefix of the ring through ScanSfM with
             SFM_TPU_LK_FUSED_TMPL=0 (K4 and K5 on their path through the
-            system).
+            system);
+  host      the same ring through the CLI's default pipeline,
+            SfMSystem.process / finalize / export (warm-up run, then the
+            measured run; the global BA on the AoS path), with its stage
+            timers;
+  cli       ``python -m sfm_tpu_torch --synthetic 8`` in a subprocess, with
+            ``--pipeline host`` (the default) and ``--pipeline scan``;
+  orb       the ring through ScanSfM with the ORB loop flavor;
+  orb_host  the ring through SfMSystem with the ORB loop flavor.
 
 The next-to-last lines are the ``{"kernels": [...]}`` summary and the
 card's name and power limit; the last line is
@@ -708,36 +716,65 @@ def time_host_stages(s) -> dict:
     return {"pose_graph_solve_s": t1 - t0, "finalize_refine_s": t2 - t1}
 
 
-def phase_pipeline(dev) -> tuple[dict, dict]:
-    from sfm_tpu_torch.ops import umeyama
-    from sfm_tpu_torch.ops.kernels import lk_kernels, shi_tomasi_kernel
-    from sfm_tpu_torch.utils import artifacts
+def ring_dataset(tmp: Path):
+    """The 47-frame ring rendered under ``tmp``: (dataset, frames, names)."""
     from sfm_tpu_torch.utils.dataset import TempleRing
     from sfm_tpu_torch.utils.synthetic import generate_dataset
 
+    generate_dataset(tmp / "templeRing", ring_spec(), name_prefix="templeR")
+    ds = TempleRing.from_dir(tmp / "templeRing")
+    return ds, [ds.load_gray(i) for i in range(FRAMES)], \
+        [r.img for r in ds.records]
+
+
+def ate_ratio(kfs, ds) -> float:
+    """Sim(3) ATE of the keyframe centres over the trajectory's extent."""
+    from sfm_tpu_torch.ops import umeyama
+
+    est = np.stack([kf.center for kf in kfs]).astype(np.float64)
+    gt = np.stack([ds.records[kf.frame_idx].center for kf in kfs])
+    res = umeyama.ate(torch.as_tensor(est), torch.as_tensor(gt),
+                      with_scale=True)
+    extent = float(np.linalg.norm(gt - gt.mean(0), axis=1).max())
+    return float(res["rmse"]) / extent
+
+
+def reset_launches() -> None:
+    from sfm_tpu_torch.ops.kernels import lk_kernels, shi_tomasi_kernel
+
+    lk_kernels.level_launches = lk_kernels.gather_launches = 0
+    lk_kernels.tmpl_launches = lk_kernels.gather1_launches = 0
+    shi_tomasi_kernel.launches = 0
+
+
+def read_launches() -> dict:
+    from sfm_tpu_torch.ops.kernels import lk_kernels, shi_tomasi_kernel
+
+    return {"shi_tomasi_score": shi_tomasi_kernel.launches,
+            "lk_gather_pair": lk_kernels.gather_launches,
+            "lk_level_fused": lk_kernels.level_launches,
+            "lk_level_tmpl": lk_kernels.tmpl_launches,
+            "lk_gather": lk_kernels.gather1_launches}
+
+
+def phase_pipeline(dev) -> tuple[dict, dict]:
+    from sfm_tpu_torch.models.scan_pipeline import carry_tensors
+    from sfm_tpu_torch.utils import artifacts
+
     with tempfile.TemporaryDirectory(prefix="sfm_smoke_") as tmp:
         tmp = Path(tmp)
-        generate_dataset(tmp / "templeRing", ring_spec(),
-                         name_prefix="templeR")
-        ds = TempleRing.from_dir(tmp / "templeRing")
-        frames = [ds.load_gray(i) for i in range(FRAMES)]
-        names = [r.img for r in ds.records]
+        ds, frames, names = ring_dataset(tmp)
 
         # warm-up run: builds nothing new, but pays every first-call cost
         run_pipeline(dev, ds.K, frames, names, tmp / "warm")
 
-        lk_kernels.level_launches = 0
-        lk_kernels.gather_launches = 0
-        shi_tomasi_kernel.launches = 0
+        reset_launches()
         s, info, dt, dt_frames = run_pipeline(dev, ds.K, frames, names,
                                               tmp / "out")
-        counts = {"lk_level_fused": lk_kernels.level_launches,
-                  "lk_gather_pair": lk_kernels.gather_launches,
-                  "shi_tomasi_score": shi_tomasi_kernel.launches}
+        counts = read_launches()
         stages = time_host_stages(s)
 
         # every tensor of the carry lives on the card
-        from sfm_tpu_torch.models.scan_pipeline import carry_tensors
         on_card = all(t.is_cuda for t in carry_tensors(s.carry))
 
         out = tmp / "out"
@@ -746,13 +783,8 @@ def phase_pipeline(dev) -> tuple[dict, dict]:
         have = all((out / f).exists() for f in files)
         centers = artifacts.read_csv_centers(out / files[0])
         ply = artifacts.read_ply_xyz(out / files[2])
-
-        est = np.stack([kf.center for kf in s.kfs]).astype(np.float64)
-        gt = np.stack([ds.records[kf.frame_idx].center for kf in s.kfs])
-        res = umeyama.ate(torch.as_tensor(est), torch.as_tensor(gt),
-                          with_scale=True)
-        extent = float(np.linalg.norm(gt - gt.mean(0), axis=1).max())
-        ratio = float(res["rmse"]) / extent
+        est = np.stack([kf.center for kf in s.kfs])
+        ratio = ate_ratio(s.kfs, ds)
 
     n_kf, n_pts = len(s.kfs), len(s.map_xyz)
     loops = [(e.i, e.j) for e in s.edges if e.is_loop]
@@ -984,9 +1016,6 @@ def phase_loop_ab(dev) -> dict:
     pipeline phase's warm-up)."""
     import dataclasses
 
-    from sfm_tpu_torch.utils.dataset import TempleRing
-    from sfm_tpu_torch.utils.synthetic import generate_dataset
-
     on = smoke_config()
     off = dataclasses.replace(
         on, loop=dataclasses.replace(on.loop, enabled=False),
@@ -994,10 +1023,7 @@ def phase_loop_ab(dev) -> dict:
     walls = {"off": [], "on": []}
     with tempfile.TemporaryDirectory(prefix="sfm_ab_") as tmp:
         tmp = Path(tmp)
-        generate_dataset(tmp / "ring", ring_spec(), name_prefix="templeR")
-        ds = TempleRing.from_dir(tmp / "ring")
-        frames = [ds.load_gray(i) for i in range(FRAMES)]
-        names = [r.img for r in ds.records]
+        ds, frames, names = ring_dataset(tmp)
         for arm in ("off", "on", "on", "off"):
             cfg = on if arm == "on" else off
             _, _, dt, _ = run_pipeline(dev, ds.K, frames, names,
@@ -1005,6 +1031,213 @@ def phase_loop_ab(dev) -> dict:
             walls[arm].append(dt)
     return {"phase": "loop_ab", "order": ["off", "on", "on", "off"],
             "wall_s": walls}
+
+
+# ---------------------------------------------------------------------------
+# phases: host, cli, orb, orb_host (the CLI's default host pipeline, the
+# command line itself, the ORB loop flavor in both pipelines)
+# ---------------------------------------------------------------------------
+
+
+# loop edges of the JAX package's ScanSfM with loop.method="orb" on the same
+# ring at smoke_config(), on the CPU (tests/test_torch_wholerun.py,
+# test_torch_wholerun_scan_orb_matches_jax; PERF.md, Findings): printed
+# beside this run's
+ORB_LOOP_EDGES_JAX_CPU = [[0, 46]]
+
+
+def run_host(dev, ds, frames, out_dir, cfg=None):
+    """SfMSystem.process over the ring, then finalize and export."""
+    from sfm_tpu_torch.models.system import SfMSystem
+
+    s = SfMSystem(ds.K, cfg or smoke_config(), gt_records=ds.records,
+                  device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, g in enumerate(frames):
+        s.process(i, ds.records[i].img, g)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s.finalize()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    info = s.export(out_dir, dataset=ds)
+    return s, info, dt, t1 - t0
+
+
+def phase_host(dev) -> tuple[dict, dict]:
+    """The CLI's default pipeline: the 47-frame ring through
+    SfMSystem.process / finalize / export at smoke_config(), after one
+    warm-up run; the global BA takes the AoS path (F*P > 8192)."""
+    from sfm_tpu_torch.utils import artifacts
+
+    with tempfile.TemporaryDirectory(prefix="sfm_host_") as tmp:
+        tmp = Path(tmp)
+        ds, frames, _ = ring_dataset(tmp)
+        run_host(dev, ds, frames, tmp / "warm")
+        reset_launches()
+        s, info, dt, dt_frames = run_host(dev, ds, frames, tmp / "out")
+        counts = read_launches()
+        out = tmp / "out"
+        files = ["keyframes_camera_centers.csv", "posegraph_edges.csv",
+                 "templeRing_sparse_points.ply"]
+        have = all((out / f).exists() for f in files)
+        kinds = [ln.split(",")[2] for ln in
+                 (out / files[1]).read_text().splitlines()[1:]]
+        n_ply = len(artifacts.read_ply_xyz(out / files[2]))
+        ratio = ate_ratio(s.kfs, ds)
+    loops = [(e.i, e.j) for e in s.edges if e.is_loop]
+    F, P, M = s.global_ba_shape or (0, 0, 0)
+    expect_k3 = (FRAMES - 1 + s.loop_verifications) * LEVELS * 2
+    checks = {
+        "k3_launches": counts["lk_level_fused"] == expect_k3,
+        "k1_launches": counts["shi_tomasi_score"] >= 1,
+        "global_ba_aos": F * P > 8192,
+        "loop_row": kinds.count("loop") >= 1,
+        "artifacts": have and n_ply > 0,
+        "finite": bool(np.isfinite(np.stack([k.center for k in s.kfs])).all()
+                       and np.isfinite(s.map.xyz()).all()),
+        "ate": ratio < 0.05,
+    }
+    line = {
+        "phase": "host", "frames": FRAMES, "wall_s": dt, "fps": FRAMES / dt,
+        "wall_s_frames": dt_frames, "wall_s_finalize": dt - dt_frames,
+        "keyframes": info["keyframes"], "map_points": info["map_points"],
+        "exported_points": n_ply, "edges": info["edges"],
+        "loop_edges": loops, "loop_verifications": s.loop_verifications,
+        "global_ba_shape": [F, P, M], "ate_ratio": ratio,
+        "stage_timers": s.timers.summary(), "launches": counts,
+        "checks": checks, "ok": all(checks.values()),
+    }
+    return line, counts
+
+
+def phase_cli(dev) -> dict:
+    """``python -m sfm_tpu_torch --synthetic 8`` in a subprocess, with the
+    default ``--pipeline host`` and with ``--pipeline scan``: exit code 0,
+    the three artifacts and the ``=== Summary ===`` block."""
+    import re
+
+    repo = Path(__file__).resolve().parent
+    runs = {}
+    ok = True
+    with tempfile.TemporaryDirectory(prefix="sfm_cli_") as tmp:
+        for pipe in ("host", "scan"):
+            out = Path(tmp) / pipe
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "sfm_tpu_torch", "--synthetic", "8",
+                 "--out", str(out), "--pipeline", pipe, "--log", "warning"],
+                cwd=repo, capture_output=True, text=True, timeout=600)
+            lines = res.stdout.splitlines()
+            summary = (lines[lines.index("=== Summary ==="):]
+                       if "=== Summary ===" in lines else [])
+            pats = (r"=== Summary ===", r"Keyframes: \d+", r"Map points: \d+",
+                    r"Edges: \d+", r"Wall time: \d+\.\d\ds \(\d+\.\d\d "
+                    r"frames/s\)", r"Outputs: .+")
+            files = ["keyframes_camera_centers.csv", "posegraph_edges.csv",
+                     "templeRing_sparse_points.ply"]
+            checks = {
+                "rc": res.returncode == 0,
+                "artifacts": all((out / f).exists() for f in files),
+                "summary": len(summary) == len(pats) and all(
+                    re.fullmatch(p, ln) for p, ln in zip(pats, summary)),
+            }
+            ok &= all(checks.values())
+            runs[pipe] = {"rc": res.returncode,
+                          "wall_s": time.perf_counter() - t0,
+                          "summary": summary, "checks": checks,
+                          "stderr_tail": res.stderr[-600:]
+                          if res.returncode else ""}
+    return {"phase": "cli", "frames": 8, "runs": runs, "ok": ok}
+
+
+def phase_orb(dev) -> tuple[dict, dict]:
+    """The 47-frame ring through ScanSfM with loop.method="orb" (ORB
+    candidates scored on every keyframe, verified by PnP), after the
+    pipeline phase's warm-up."""
+    import dataclasses
+
+    from sfm_tpu_torch.models.scan_pipeline import ScanSfM
+
+    base = smoke_config()
+    cfg = dataclasses.replace(base, loop=dataclasses.replace(base.loop,
+                                                             method="orb"))
+    with tempfile.TemporaryDirectory(prefix="sfm_orb_") as tmp:
+        tmp = Path(tmp)
+        ds, frames, names = ring_dataset(tmp)
+        reset_launches()
+        s = ScanSfM(ds.K, cfg, n_frames=FRAMES, chunk=32, p_cap=16384,
+                    p_ba=1024, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, g in enumerate(frames):
+            s.process(i, names[i], g)
+        s.finalize()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_launches()
+        info = s.export(tmp / "out")
+        ratio = ate_ratio(s.kfs, ds)
+    loops = [(e.i, e.j) for e in s.edges if e.is_loop]
+    n_kf = len(s.kfs)
+    expect_k3 = (FRAMES - 1 + s.loop_verifications
+                 + s.host_verifications) * LEVELS * 2
+    checks = {
+        "orb_every_keyframe": sorted(s._orb_ids) == list(range(n_kf)),
+        "k1_launches": counts["shi_tomasi_score"] >= n_kf,
+        "k3_launches": counts["lk_level_fused"] == expect_k3,
+        "finite": bool(np.isfinite(np.stack([k.center for k in s.kfs])).all()),
+        "ate": ratio < 0.05,
+    }
+    line = {
+        "phase": "orb", "frames": FRAMES, "wall_s": dt, "fps": FRAMES / dt,
+        "keyframes": n_kf, "map_points": info["map_points"],
+        "loop_edges": loops,
+        "loop_edges_jax_cpu_recorded": ORB_LOOP_EDGES_JAX_CPU,
+        "orb_verifications": s.host_verifications, "ate_ratio": ratio,
+        "launches": counts, "checks": checks, "ok": all(checks.values()),
+    }
+    return line, counts
+
+
+def phase_orb_host(dev) -> tuple[dict, dict]:
+    """The 47-frame ring through SfMSystem with loop.method="orb" (ORB
+    features on every keyframe, candidates ranked by Hamming match count,
+    verified by E-RANSAC on the matches), after the host phase's warm-up:
+    the ORB branch of the CLI's default pipeline."""
+    import dataclasses
+
+    base = smoke_config()
+    cfg = dataclasses.replace(base, loop=dataclasses.replace(base.loop,
+                                                             method="orb"))
+    with tempfile.TemporaryDirectory(prefix="sfm_orb_host_") as tmp:
+        tmp = Path(tmp)
+        ds, frames, _ = ring_dataset(tmp)
+        reset_launches()
+        s, info, dt, _ = run_host(dev, ds, frames, tmp / "out", cfg)
+        counts = read_launches()
+        ratio = ate_ratio(s.kfs, ds)
+    loops = [(e.i, e.j) for e in s.edges if e.is_loop]
+    n_kf = len(s.kfs)
+    checks = {
+        "orb_every_keyframe": all(k.orb is not None for k in s.kfs),
+        "k1_launches": counts["shi_tomasi_score"] >= n_kf,
+        # the ORB verification is E-RANSAC on matches: no LK re-track
+        "k3_launches": counts["lk_level_fused"] == (FRAMES - 1) * LEVELS * 2,
+        "finite": bool(np.isfinite(np.stack([k.center for k in s.kfs])).all()
+                       and np.isfinite(s.map.xyz()).all()),
+        "ate": ratio < 0.05,
+    }
+    line = {
+        "phase": "orb_host", "frames": FRAMES, "wall_s": dt,
+        "fps": FRAMES / dt, "keyframes": n_kf,
+        "map_points": info["map_points"], "loop_edges": loops,
+        "loop_inliers": [e.inliers for e in s.edges if e.is_loop],
+        "ate_ratio": ratio, "stage_timers": s.timers.summary(),
+        "launches": counts, "checks": checks, "ok": all(checks.values()),
+    }
+    return line, counts
 
 
 def short_ring_spec(n: int):
@@ -1075,20 +1308,34 @@ def main() -> int:
     if not line["ok"]:
         print("chip_smoke: the arms phase failed", file=sys.stderr)
         return 1
-    counts.update(arm_counts)
+    by_path = {"pipeline": counts, "arms": arm_counts}
+    for name, phase in (("host", phase_host), ("cli", phase_cli),
+                        ("orb", phase_orb), ("orb_host", phase_orb_host)):
+        with torch.no_grad():
+            out = phase(dev)
+        line, path_counts = out if isinstance(out, tuple) else (out, None)
+        emit(line)
+        if not line["ok"]:
+            print(f"chip_smoke: the {name} phase failed", file=sys.stderr)
+            return 1
+        if path_counts is not None:
+            by_path[name] = path_counts
     if args.profile:
         with torch.no_grad():
             emit(phase_profile(dev))
             emit(phase_loop_ab(dev))
 
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches_by_path"] = {p: c.get(r["name"], 0)
+                                 for p, c in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("ms_r2", "max_abs_err_border", "tol_border", "max_abs_err_step",
              "max_step_excess", "tol_step", "border_far", "border_far_by",
-             "radii_checked", "widths_checked", "library_two_calls_ms")
+             "radii_checked", "widths_checked", "library_two_calls_ms",
+             "launches_by_path")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in rows]})
     print(smi, flush=True)

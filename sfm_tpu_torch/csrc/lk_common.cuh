@@ -43,28 +43,11 @@ __device__ __forceinline__ float window_start(float o, int back, int extent,
     return s;
 }
 
-// Copy the win x win window at (sx, sy) of img (H x W, row-major) into dst
-// (row stride dst_stride); the nthreads threads of the caller's group,
-// of which this is number tid, share the work.
-__device__ __forceinline__ void load_window(const float* __restrict__ img,
-                                            int H, int W, int sx, int sy,
-                                            int win, float* dst,
-                                            int dst_stride, int tid,
-                                            int nthreads) {
-    sx = clamp_start(sx, W, win);
-    sy = clamp_start(sy, H, win);
-    const float* src = img + (size_t)sy * W + sx;
-    for (int i = tid; i < win * win; i += nthreads) {
-        int r = i / win;
-        int c = i - r * win;
-        dst[r * dst_stride + c] = src[(size_t)r * W + c];
-    }
-}
-
-// load_window for one warp, with cp.async (4 bytes a lane): row by row,
-// lane l on columns l, l+32, ...; every load of the window is in flight at
-// once, and none passes through registers.  The caller waits with
-// copy_wait().
+// Copy the win x win window at (sx, sy) of img (H x W, row-major), its
+// start clamped into the image, into dst (row stride dst_stride): one
+// warp, with cp.async (4 bytes a lane), row by row, lane l on columns l,
+// l+32, ...; every load of the window is in flight at once, and none
+// passes through registers.  The caller waits with copy_wait().
 __device__ __forceinline__ void load_window_async(
     const float* __restrict__ img, int H, int W, int sx, int sy, int win,
     float* dst, int dst_stride, int lane) {

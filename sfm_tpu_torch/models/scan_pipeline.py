@@ -38,8 +38,8 @@ more per keyframe with loop closure on).  Where the JAX twin rebuilds the
 ring and map tables with ``.at[].set``, this code updates them IN PLACE:
 a carry handed to ``frame_step``/``run_chunk`` is consumed by the call.
 
-``ScanSfM`` runs every single-scene configuration of the JAX twin except
-the ORB loop flavor (``loop.method="orb"``), for which it raises.
+``ScanSfM`` runs every single-scene configuration of the JAX twin, the
+ORB loop flavor (``loop.method="orb"``) included.
 """
 
 from __future__ import annotations
@@ -51,13 +51,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from sfm_tpu_torch.config import (ExportGeometry, SystemConfig,
+from sfm_tpu_torch.config import (ExportGeometry, KLTConfig, SystemConfig,
                                   TranslationMode)
 from sfm_tpu_torch.models import tracker
 from sfm_tpu_torch.models.mapstate import Edge, Keyframe
 from sfm_tpu_torch.ops import (ba as ba_ops, descriptors, epipolar,
-                               features, image as im, klt, pnp as pnp_ops,
-                               posegraph as pg_ops, triangulate)
+                               features, image as im, klt, orb as orb_ops,
+                               pnp as pnp_ops, posegraph as pg_ops,
+                               triangulate)
 from sfm_tpu_torch.ops.features import top_k_stable
 from sfm_tpu_torch.ops.linalg import nanmedian
 from sfm_tpu_torch.utils import artifacts, np_geom
@@ -121,6 +122,14 @@ class ScanCarry:
     n_pts: torch.Tensor      # () i32 allocation cursor
     gen: torch.Generator | None = None  # RANSAC sampling (the JAX twin's
     #                                     PRNG key leaf)
+
+
+def _orb_score_bank(d_bank, v_bank, d_j, v_j):
+    """Ratio-passing ORB match counts of keyframe j against a bank of
+    older keyframes, one batched call (ref py:557-570 candidate scoring).
+    d_bank (K,N,256) f32 bits, v_bank (K,N) bool; returns (K,) int."""
+    _, ok, _ = orb_ops.match_hamming(d_bank, v_bank, d_j, v_j)
+    return torch.sum(ok, dim=-1)
 
 
 _RING_DTYPES = {
@@ -638,17 +647,61 @@ def _loop_gate(cfg: SystemConfig, ring: KeyframeRing, kf_id: int, best_k,
             & (b_cand <= b_gate) & (n_mapped_old >= 30))
 
 
+def _loop_pnp(kcfg, Kf, pyr_old, pyr_new, uv_old, X_old, m_old, R_wc0,
+              t_wc0, huber_delta, pnp_iters: int = 12):
+    """The PnP part of a loop verification: LK-retrack the old keyframe's
+    mapped tracks ``uv_old`` (mask ``m_old``, map points ``X_old``) from
+    pyramid ``pyr_old`` into ``pyr_new``, then robust PnP from the old
+    keyframe's world->camera pose.  Returns (R_wc, t_wc, info, use) with
+    ``use`` the tracks the PnP ran on."""
+    new_pts, ok = klt.lk_track_fb(
+        pyr_old, pyr_new, uv_old, m_old, levels=kcfg.pyr_levels,
+        iters=kcfg.iters, radius=kcfg.win_radius, fb_thresh=kcfg.fb_thresh,
+        device=X_old.device)
+    xj = epipolar.normalize_by_K(Kf, new_pts.to(f32))
+    use = ok & m_old
+    R, t, info = pnp_ops.refine_pose(R_wc0, t_wc0, X_old, xj, use,
+                                     iters=pnp_iters, huber_delta=huber_delta)
+    return R, t, info, use
+
+
+def _loop_pnp_stage(Kf, img_old, img_new, uv_old, X_old, m_old, R_wc0,
+                    t_wc0, levels: int, lk_iters: int, radius: int,
+                    fb_thresh, huber_delta, pnp_iters: int = 12):
+    """Loop-closure verification via PnP against the old keyframe's map
+    (the host pipeline's, ``SfMSystem._try_loop_pnp``).
+
+    The reference verifies loops with an E-matrix re-estimate
+    (cpp:1856-1859), but E = [t]x R vanishes with the baseline; once a map
+    exists the strictly better measurement is 3D->2D: LK-retrack the old
+    keyframe's MAPPED tracks into the new frame and run robust PnP —
+    metric, scale-resolved, and accurate at any baseline.  One device
+    program, one host pull.
+
+    Returns pack [R_wc(9), t_wc(3), pnp_inliers, n_tracked, inlier_rms]."""
+    kcfg = KLTConfig(pyr_levels=levels, iters=lk_iters, win_radius=radius,
+                     fb_thresh=fb_thresh)
+    R, t, info, use = _loop_pnp(
+        kcfg, Kf, _build_pyr(img_old, levels), _build_pyr(img_new, levels),
+        uv_old, X_old.to(f32), m_old, R_wc0.to(f32), t_wc0.to(f32),
+        huber_delta, pnp_iters)
+    return torch.cat([
+        R.reshape(9).to(f32), t.to(f32),
+        torch.stack([info["inliers"].to(f32), torch.sum(use).to(f32),
+                     info["inlier_rms"].to(f32)]),
+    ])
+
+
 def _pnp_loop_edge(kcfg, Kf, ring: KeyframeRing, X, pyr_old, pyr_new,
                    cand_kf: int, cur_kf: int, huber_delta):
-    """The loop edge cand_kf -> cur_kf measured with PnP: LK-retrack the
-    old keyframe's MAPPED tracks (pyramid ``pyr_old``) into the new frame
-    (``pyr_new``), robust PnP against their map points — metric,
-    scale-resolved, and accurate at any baseline (E = [t]x R vanishes with
-    the baseline, so the reference's E-matrix re-estimate, cpp:1856-1859,
-    is the fallback only) — and the relative scale the closure reveals:
-    median depth of cur_kf's map points in its own pose over the old
-    segment's at the PnP pose (node convention x_w = s·R·x_c + C gives
-    s_rel = s_i/s_j; 1 when either side has fewer than 20 depths).
+    """The loop edge cand_kf -> cur_kf measured with PnP (``_loop_pnp``):
+    metric, scale-resolved, and accurate at any baseline (E = [t]x R
+    vanishes with the baseline, so the reference's E-matrix re-estimate,
+    cpp:1856-1859, is the fallback only) — and the relative scale the
+    closure reveals: median depth of cur_kf's map points in its own pose
+    over the old segment's at the PnP pose (node convention x_w = s·R·x_c
+    + C gives s_rel = s_i/s_j; 1 when either side has fewer than 20
+    depths).
 
     Returns one f32 tensor [R_ji (9), t_ji (3), inliers, n_tracked, s_rel,
     n_mapped_old], so the host needs a single pull."""
@@ -658,14 +711,9 @@ def _pnp_loop_edge(kcfg, Kf, ring: KeyframeRing, X, pyr_old, pyr_new,
     X_old = X[torch.clamp(pid_old, 0, P_CAP - 1).long()]
     R_cw_o, C_o = ring.R_cw[cand_kf], ring.t_cw[cand_kf]
     R_wc0, t_wc0 = _wc(R_cw_o, C_o)
-    new_pts, ok = klt.lk_track_fb(
-        pyr_old, pyr_new, ring.uv[cand_kf], m_old, levels=kcfg.pyr_levels,
-        iters=kcfg.iters, radius=kcfg.win_radius, fb_thresh=kcfg.fb_thresh,
-        device=X.device)
-    xj = epipolar.normalize_by_K(Kf, new_pts.to(f32))
-    use = ok & m_old
-    Rv, tv, info = pnp_ops.refine_pose(R_wc0, t_wc0, X_old, xj, use,
-                                       iters=12, huber_delta=huber_delta)
+    Rv, tv, info, use = _loop_pnp(kcfg, Kf, pyr_old, pyr_new,
+                                  ring.uv[cand_kf], X_old, m_old, R_wc0,
+                                  t_wc0, huber_delta)
     # pose-graph edge i->j from the metric PnP pose
     R_ji = Rv @ R_cw_o
     t_ji = Rv @ C_o + tv
@@ -812,23 +860,30 @@ def frame_step(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry, img,
 
 
 def run_chunk(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry,
-              imgs, idxs, fvalid, gt_C=None):
+              imgs, idxs, fvalid, gt_C=None, pri_for=None):
     """Process a chunk of frames.
 
     imgs: sequence of (H,W) u8/f32 tensors on the carry's device; idxs
     (C,) frame indices and fvalid (C,) bool on the host — padding frames
     (fvalid False) are no-ops with an all-zero metrics row, as in the JAX
     twin.  ``gt_C`` (F,3) optional per-frame GT centers for
-    cfg.use_gt_scale (see _keyframe_branch).  Returns (carry, ys (C,NY)
-    f32 on the device)."""
+    cfg.use_gt_scale (see _keyframe_branch).  ``pri_for``: optional
+    callable frame index -> (pri_frame, pri_edge) (H,T) f32 priorities,
+    handed to ``frame_step`` in place of the carry's generator (tests).
+    Returns (carry, ys (C,NY) f32 on the device)."""
     dev = carry.X.device
     ys = []
     for img, idx, fval in zip(imgs, idxs, fvalid):
         if not bool(fval):
             ys.append(torch.zeros((NY,), dtype=f32, device=dev))
             continue
+        pri = {}
+        if pri_for is not None:
+            pri = dict(zip(("pri_frame", "pri_edge"),
+                           (to_device(np.asarray(a, np.float32), dev)
+                            for a in pri_for(int(idx)))))
         carry, y = frame_step(cfg, p_ba, Kf, carry, img, int(idx),
-                              gt_C=gt_C)
+                              gt_C=gt_C, **pri)
         ys.append(y)
     return carry, torch.stack(ys)
 
@@ -1005,11 +1060,6 @@ class ScanSfM:
                  p_cap: int = 16384, p_ba: int = 1024, gt_records=None,
                  device="cuda"):
         self.device = resolve(device)
-        if cfg.loop.enabled and cfg.loop.method == "orb":
-            raise NotImplementedError(
-                "sfm_tpu_torch.ScanSfM does not support loop.method='orb' "
-                "(ORB loop candidates) yet: see ROADMAP.md, Queue 1. Use "
-                "loop.method='descriptor'.")
         self._gt_C = None
         if cfg.use_gt_scale:
             if gt_records is None:
@@ -1030,9 +1080,20 @@ class ScanSfM:
         self.metrics: list[dict] = []
         self.loop_edges: list[Edge] = []
         # keyframe images (frame_idx -> u8 gray) for the host-driven loop
-        # verification; the device-verified path keeps them in the ring
-        self._host_verify = cfg.loop.enabled and not cfg.loop.device_verify
+        # verification and the ORB flavor; the device-verified path keeps
+        # them in the ring
+        self._keep_images = cfg.loop.enabled and (
+            not cfg.loop.device_verify or cfg.loop.method == "orb")
         self._images: dict[int, np.ndarray] = {}
+        # ORB flavor: per-keyframe features + a persistent device-side
+        # descriptor bank (kf_cap, max_kp, 256)
+        self._orb_ids: dict[int, tuple] = {}
+        self._orb_bank = None
+        self._orb_bank_valid = None
+        # tests hand in the JAX twin's per-frame RANSAC priorities here
+        # (callable frame index -> (pri_frame, pri_edge)); None draws from
+        # the carry's generator
+        self._pri_source = None
         self._names: list[str] = []
         self._pending: list[tuple[int, str, np.ndarray, torch.Tensor]] = []
         self.kfs: list[Keyframe] = []
@@ -1042,6 +1103,7 @@ class ScanSfM:
         self._pg_ran = False
         self.pg_solves = 0      # pose-graph solves pushed back so far
         self.loop_verifications = 0  # keyframes whose loop verification ran
+        self.host_verifications = 0  # host loop verifications (each LK)
         self.refine_rounds = 1  # re-triangulate/refine cycles at finalize
 
     # -- streaming interface -------------------------------------------
@@ -1052,7 +1114,7 @@ class ScanSfM:
         dev_img = torch.from_numpy(np.array(gray_u8)).to(
             self.device, non_blocking=True)
         if self.carry is None:
-            if self._host_verify:
+            if self._keep_images:
                 self._images[int(frame_idx)] = np.asarray(gray_u8)
             with torch.no_grad():
                 self.carry = bootstrap_carry(
@@ -1084,7 +1146,7 @@ class ScanSfM:
         with torch.no_grad():
             self.carry, ys = run_chunk(
                 self.cfg, self.p_ba, self._Kt, self.carry, imgs, idxs,
-                fvalid, gt_C=self._gt_C)
+                fvalid, gt_C=self._gt_C, pri_for=self._pri_source)
         ys = ys.cpu().numpy().astype(np.float64)  # the chunk's one pull
         self.loop_verifications += int(
             ((ys[:, Y_VALID] > 0.5) & (ys[:, Y_LV_OK] > -0.5)).sum())
@@ -1106,7 +1168,7 @@ class ScanSfM:
                 met["loop_cand"] = int(row[Y_LOOP_K])
                 met["ba_cost0"] = float(row[Y_BA0])
                 met["ba_cost"] = float(row[Y_BA1])
-                if self._host_verify and fi in pend_imgs:
+                if self._keep_images and fi in pend_imgs:
                     self._images[fi] = np.asarray(pend_imgs[fi])
             self.metrics.append(met)
             log.info(
@@ -1181,9 +1243,15 @@ class ScanSfM:
         """Loop closure after a chunk: collect the edges the chunk
         verified on the device (``loop.device_verify``), or verify the
         chunk's gated candidates here (ref cpp:1833-1859), then run the
-        pose graph and push the corrected poses back into the carry."""
+        pose graph and push the corrected poses back into the carry.  With
+        ``loop.method == "orb"`` the candidates come from ORB ratio
+        matching instead (``_check_loops_orb``), and what the keyframe
+        branch verified on the device is not read, as in the JAX twin."""
         lcfg = self.cfg.loop
         if not lcfg.enabled:
+            return
+        if lcfg.method == "orb":
+            self._check_loops_orb(ys)
             return
         if lcfg.device_verify:
             self._collect_device_loops(ys)
@@ -1271,6 +1339,80 @@ class ScanSfM:
                      int(row[Y_LV_NTR]))
         self._pose_graph_pushback(pr=rp)
 
+    def _orb_for(self, kf_id: int, img) -> None:
+        """Compute + cache ORB features for keyframe ``kf_id`` and write
+        them into the persistent device-side descriptor bank (so scoring a
+        new keyframe against ALL older ones is one batched call)."""
+        if kf_id in self._orb_ids:
+            return
+        xy, d, v = orb_ops.detect_and_describe(
+            to_device(np.asarray(img), self.device, f32),
+            max_kp=self.cfg.loop.max_keypoints, device=self.device)
+        if self._orb_bank is None:
+            self._orb_bank = torch.zeros((self.kf_cap, *d.shape), dtype=f32,
+                                         device=self.device)
+            self._orb_bank_valid = torch.zeros(
+                (self.kf_cap, v.shape[0]), dtype=torch.bool,
+                device=self.device)
+        self._orb_bank[kf_id] = d
+        self._orb_bank_valid[kf_id] = v
+        self._orb_ids[kf_id] = (xy, d, v)
+
+    def _check_loops_orb(self, ys: np.ndarray) -> None:
+        """ORB-flavor loop candidates (ref py:557-570: ratio matching
+        against all >= min_kf_gap older keyframes, top-k by match count),
+        verified by the same PnP-primary ``_verify_loop`` as the
+        descriptor flavor.  Match counts for all candidates come from ONE
+        batched call against the persistent bank."""
+        lcfg = self.cfg.loop
+        rows = ys[(ys[:, Y_VALID] > 0.5) & (ys[:, Y_KF] > 0.5)]
+        if len(rows) == 0:
+            return
+        ring = self.carry.ring
+        frames = ring.frame.cpu().numpy()
+        kvalid = ring.kvalid.cpu().numpy()
+        n_kf = int(self.carry.kf_count)
+        cs = ring.t_cw.cpu().numpy().astype(np.float64)[:n_kf]
+        found = False
+        if 0 not in self._orb_ids and 0 in self._images:
+            self._orb_for(0, self._images[0])  # bootstrap keyframe
+        for row in rows:
+            cur_frame = int(row[Y_FRAME])
+            arr = np.nonzero(kvalid & (frames == cur_frame))[0]
+            if len(arr) == 0:
+                continue
+            cur_kf = int(arr[0])
+            img_j = self._images.get(cur_frame)
+            if img_j is None:
+                continue
+            self._orb_for(cur_kf, img_j)
+            _, d_j, v_j = self._orb_ids[cur_kf]
+            counts = _orb_score_bank(self._orb_bank, self._orb_bank_valid,
+                                     d_j, v_j).cpu().numpy()
+            has = np.zeros(self.kf_cap, bool)
+            for k in self._orb_ids:
+                has[k] = True
+            counts = np.where(has, counts, 0)
+            lim = max(cur_kf - lcfg.min_kf_gap + 1, 0)
+            scored = [(int(counts[k]), k) for k in range(lim)
+                      if kvalid[k] and counts[k] >= lcfg.min_matches]
+            scored.sort(reverse=True)
+            for n, cand_kf in scored[: max(lcfg.top_k, 1)]:
+                old_img = self._images.get(int(frames[cand_kf]))
+                if old_img is None:
+                    continue
+                edge = self._verify_loop(cand_kf, cur_kf, old_img, img_j, cs)
+                if edge is None:
+                    continue
+                self.loop_edges.append(edge)
+                found = True
+                self._mark_loop(cur_frame, cand_kf, cur_kf)
+                log.info("loop closure (orb) %d -> %d (matches %d, "
+                         "inliers %d)", cand_kf, cur_kf, n, edge.inliers)
+                break
+        if found:
+            self._pose_graph_pushback()
+
     def _pnp_edge_from_pack(self, pack: np.ndarray, cand_kf: int,
                             cur_kf: int, cs: np.ndarray):
         """The loop ``Edge`` from a pulled `_pnp_loop_edge` pack
@@ -1315,6 +1457,7 @@ class ScanSfM:
         kcfg = self.cfg.klt
         ring = self.carry.ring
         lw = self.cfg.pose_graph.loop_weight
+        self.host_verifications += 1
         old_t = torch.from_numpy(np.array(old_img)).to(self.device)
         new_t = torch.from_numpy(np.array(new_img)).to(self.device)
         # one scalar pull decides the branch

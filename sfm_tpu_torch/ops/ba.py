@@ -1,19 +1,30 @@
 """Sliding-window bundle adjustment: batched Schur-complement LM.
 
-Counterpart of sfm_tpu/ops/ba.py, structure-of-arrays path (reference:
+Counterpart of sfm_tpu/ops/ba.py (reference:
 cpp/src/templering_sfm.cpp:848-1097 ``bundle_adjust_window`` — analytic
 Jacobians cpp:944-976, per-point Schur elimination cpp:1011-1057, 6Wx6W
 reduced camera solve cpp:1073, SE(3) manifold update cpp:1081-1095, gauge
 fix cpp:1067-1071).
 
-Residuals + Jacobians for ALL observations are one vectorized evaluation
-on (M,) scalars; the block Hessians assemble with two one-hot matmuls;
-the point blocks are eliminated with a closed-form 3x3 inverse; the
-reduced camera system solves by Cholesky; the LM loop accepts or rejects
-each step.  Everything is fixed-shape: (F) window poses, (P) points, (M)
-padded observations.  Only window-sized problems (F*P <= 8192) are
-supported so far by ``bundle_adjust``; ``refine_points`` (frozen poses,
-the final structure polish) takes any size.
+Residuals + Jacobians for ALL observations are one vectorized evaluation;
+the point blocks are eliminated with a batched 3x3 inverse; the reduced
+camera system solves by Cholesky; the LM loop accepts or rejects each
+step.  Everything is fixed-shape: (F) poses, (P) points, (M) padded
+observations.  Two layouts, chosen by size as in the JAX twin:
+
+  * window-sized problems (F*P <= 8192): structure of arrays, (M,)
+    scalars whose block sums ride two one-hot matmuls
+    (``_linearize_soa`` / ``_solve_schur_soa``);
+  * larger ones (the global final BA, F=64 P=16384 at 47 keyframes):
+    array of structures, (M,6,6)/(M,6,3)/... blocks summed per camera,
+    per point and per (camera, point) by ``_segment_sum`` — a sort-based
+    plan built once per solve, so the sums take one fixed order on every
+    run (no float atomics: ``index_add_`` on CUDA is not
+    bit-reproducible) — then dense (F,P,6,3) Schur contractions as
+    matmuls (``_linearize`` / ``_solve_schur``).
+
+``refine_points`` (frozen poses, the final structure polish) takes any
+size.
 
 Conventions: poses are world→camera (R_wc, t_wc); observations are
 K-normalized image coords; update is left-multiplicative SE(3):
@@ -44,7 +55,7 @@ class BAProblem(NamedTuple):
 
 _CUTOFF = 10.0  # gross-outlier gate, in units of huber_delta
 
-_SOA_LIMIT = 8192  # F*P above which the JAX twin leaves the SoA path
+_SOA_LIMIT = 8192  # F*P above which bundle_adjust takes the AoS path
 
 
 def _camera_points(p: BAProblem):
@@ -80,8 +91,9 @@ def _huber_weight(r, delta):
     return torch.where(n > _CUTOFF * delta, torch.zeros_like(w), w)
 
 
-def ba_cost_soa(p: BAProblem, huber_delta: float) -> torch.Tensor:
-    """Total robust cost (for LM accept/reject and metrics)."""
+def ba_cost(p: BAProblem, huber_delta: float) -> torch.Tensor:
+    """Total robust cost (for LM accept/reject and metrics), in (M,)
+    scalar lanes on either Hessian layout."""
     Xc, _, _, _ = _camera_points(p)
     z = Xc[2]
     z_ok = p.obs_valid & (z > 1e-6)
@@ -99,6 +111,138 @@ def ba_cost_soa(p: BAProblem, huber_delta: float) -> torch.Tensor:
     behind = torch.where(p.obs_valid, 2.0 * cap + 1.0, 0.0).to(rho.dtype)
     rho = torch.where(z_ok, rho, behind)
     return torch.sum(torch.where(p.obs_valid, rho, torch.zeros_like(rho)))
+
+
+def _segment_plan(seg, keep, n_seg: int):
+    """Fixed-order reduction plan for the segment ids ``seg`` (M,) of the
+    rows where ``keep`` holds: (ids (U,) of the segments present, G (U,cap)
+    row indices of each one's rows in row order, M where a segment has
+    fewer than cap).  One stable sort, then every sum through the plan
+    reduces by gathers in one order on every run.  One host pull (cap)."""
+    M = seg.shape[0]
+    dev = seg.device
+    s = torch.where(keep, seg.long(), torch.full_like(seg.long(), n_seg))
+    order = torch.argsort(s, stable=True)
+    ids, counts = torch.unique_consecutive(s[order], return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    real = ids < n_seg              # the dump segment sorts last
+    ids, counts, starts = ids[real], counts[real], starts[real]
+    cap = max(int(counts.max()) if len(counts) else 0, 1)
+    r = torch.arange(cap, device=dev)
+    pos = torch.clamp(starts[:, None] + r[None], max=M - 1)
+    G = torch.where(r[None] < counts[:, None], order[pos],
+                    torch.full_like(pos, M))
+    return ids, G
+
+
+def _segment_sum(vals, plan, n_seg: int):
+    """(M, ...) values -> (n_seg, ...) per-segment sums by a plan of
+    ``_segment_plan`` (absent segments are zero)."""
+    ids, G = plan
+    pad = torch.cat([vals, vals.new_zeros((1, *vals.shape[1:]))])
+    out = vals.new_zeros((n_seg, *vals.shape[1:]))
+    out[ids] = pad[G].sum(dim=1)
+    return out
+
+
+def _aos_plans(p: BAProblem):
+    """The per-camera, per-point and per-(camera, point) plans of a problem
+    (they depend only on its fixed observation table).  Invalid rows are
+    left out: their weight is 0, so their blocks are exact zeros."""
+    F = p.R_wc.shape[0]
+    P = p.X.shape[0]
+    cam, pid = p.cam_idx.long(), p.pid_idx.long()
+    return (_segment_plan(cam, p.obs_valid, F),
+            _segment_plan(pid, p.obs_valid, P),
+            _segment_plan(cam * P + pid, p.obs_valid, F * P))
+
+
+def _linearize(p: BAProblem, huber_delta, plans=None):
+    """One vectorized linearization pass over all observations, array of
+    structures, with fixed-order segment sums (``plans`` from
+    ``_aos_plans``; made here when not given).
+
+    Returns (Hcc (F,6,6), bc (F,6), Hpp (P,3,3), bp (P,3), W (F,P,6,3))."""
+    F = p.R_wc.shape[0]
+    P = p.X.shape[0]
+    cam, pid = p.cam_idx.long(), p.pid_idx.long()
+    r, Xc, z_ok = _project_residuals(p.R_wc, p.t_wc, p.X, cam, pid, p.obs,
+                                     p.obs_valid)
+    w = _huber_weight(r, huber_delta) * (z_ok & p.point_valid[pid]).to(
+        r.dtype)
+    z = torch.where(Xc[:, 2].abs() < 1e-6, torch.full_like(Xc[:, 2], 1e-6),
+                    Xc[:, 2])
+    inv_z = 1.0 / z
+    x, y = Xc[:, 0], Xc[:, 1]
+    zero = torch.zeros_like(inv_z)
+    # Jproj (M,2,3), ref cpp:944-947
+    Jproj = torch.stack(
+        [
+            torch.stack([inv_z, zero, -x * inv_z * inv_z], dim=-1),
+            torch.stack([zero, inv_z, -y * inv_z * inv_z], dim=-1),
+        ],
+        dim=-2,
+    )
+    # pose block [-Jproj·hat(Xc) | Jproj] (left-mult SE(3); ref
+    # cpp:961-976); point block Jproj·R_wc (ref cpp:949-957)
+    Jw = -torch.einsum("mij,mjk->mik", Jproj, lie.hat(Xc))
+    Jc = torch.cat([Jw, Jproj], dim=-1) * w[:, None, None]   # (M,2,6)
+    Jp = torch.einsum("mij,mjk->mik", Jproj,
+                      p.R_wc[cam]) * w[:, None, None]       # (M,2,3)
+    rw = r * w[:, None]
+    if plans is None:
+        plans = _aos_plans(p)
+    pc, pp, pw = plans
+    Hcc = _segment_sum(torch.einsum("mia,mib->mab", Jc, Jc), pc, F)
+    bc = _segment_sum(torch.einsum("mia,mi->ma", Jc, rw), pc, F)
+    Hpp = _segment_sum(torch.einsum("mia,mib->mab", Jp, Jp), pp, P)
+    bp = _segment_sum(torch.einsum("mia,mi->ma", Jp, rw), pp, P)
+    W = _segment_sum(torch.einsum("mia,mib->mab", Jc, Jp), pw,
+                     F * P).reshape(F, P, 6, 3)
+    return Hcc, bc, Hpp, bp, W
+
+
+def _solve_schur(Hcc, bc, Hpp, bp, W, point_valid, lam, n_fix: int):
+    """Schur elimination of the points + reduced camera solve, array of
+    structures (ref cpp:1011-1078; gauge handled by solving only for poses
+    >= n_fix).  The (F,F,6,6) off-diagonal sum over points is one
+    (6F,3P) x (3P,6F) matmul.  Returns (dx_cam (F,6), dX (P,3))."""
+    F = Hcc.shape[0]
+    P = Hpp.shape[0]
+    dtype = Hcc.dtype
+    dev = Hcc.device
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    pv = point_valid[:, None, None]
+    # damp + regularize invalid/under-constrained points
+    diagp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+    Hpp_d = Hpp + (lam * torch.clamp(diagp.amax(-1), min=1e-6)[:, None, None]
+                   + 1e-9) * eye3
+    Hpp_d = torch.where(pv, Hpp_d, eye3)
+    Hpp_inv = torch.where(pv, linalg.inv3(Hpp_d), torch.zeros_like(Hpp_d))
+
+    T = torch.einsum("fpij,pjk->fpik", W, Hpp_inv)          # (F,P,6,3)
+    # rows (f,i), columns (p,k): S_off[(f,i),(g,j)] = sum_pk T W
+    A2 = T.permute(0, 2, 1, 3).reshape(6 * F, 3 * P)
+    B2 = W.permute(0, 2, 1, 3).reshape(6 * F, 3 * P)
+    Sf = -(A2 @ B2.T)
+    S4 = Sf.reshape(F, 6, F, 6)
+    idx = torch.arange(F, device=dev)
+    S4[idx, :, idx, :] += Hcc
+    b = (bc - torch.einsum("fpik,pk->fi", T, bp)).reshape(6 * F)
+    # LM damping on the camera diagonal; poses with NO observations
+    # (fixed-capacity padding) get a unit prior
+    dS = torch.diagonal(Sf)
+    prior = torch.where(dS <= 0.0, 1.0, 0.0).to(dtype)
+    Sf = Sf + torch.diag(lam * torch.clamp(dS, min=1e-6) + 1e-9 + prior)
+    kfix = 6 * n_fix
+    dx_red = linalg.solve_psd(Sf[kfix:, kfix:], -b[kfix:], jitter=1e-12)
+    dx = torch.cat([torch.zeros(kfix, dtype=dtype, device=dev),
+                    dx_red]).reshape(F, 6)
+
+    # back-substitute points: dX = Hpp^{-1}(-bp - W^T dx)
+    rhs = -bp - torch.einsum("fpik,fi->pk", W, dx)
+    dX = torch.einsum("pij,pj->pi", Hpp_inv, rhs)
+    return dx, dX
 
 
 def _linearize_soa(p: BAProblem, huber_delta):
@@ -258,32 +402,38 @@ def bundle_adjust(
     update_points: bool = True,
 ):
     """Run ``iters`` LM steps with accept/reject. Returns
-    (R_wc, t_wc, X, info dict).  The accept/reject selection stays on the
-    device (``torch.where``), so the loop makes no host sync."""
+    (R_wc, t_wc, X, info dict).  Window-sized problems (F*P <= 8192) take
+    the SoA layout, larger ones the AoS layout.  The accept/reject
+    selection stays on the device (``torch.where``), so the loop makes no
+    host sync (the AoS plans make one, before it)."""
     F = p.R_wc.shape[0]
     P = p.X.shape[0]
-    if F * P > _SOA_LIMIT:
-        raise NotImplementedError(
-            f"bundle_adjust: F*P = {F * P} > {_SOA_LIMIT}; only the "
-            "window-sized structure-of-arrays path is ported so far")
+    soa = F * P <= _SOA_LIMIT
+    plans = None if soa else _aos_plans(p)
     dtype = p.R_wc.dtype
     dev = p.R_wc.device
     R_wc, t_wc, X = p.R_wc, p.t_wc, p.X
-    cost0 = ba_cost_soa(p, huber_delta)
+    cost0 = ba_cost(p, huber_delta)
     cost = cost0
     lam = torch.as_tensor(lambda0, dtype=dtype, device=dev)
     hist = []
     for _ in range(iters):
         cur = p._replace(R_wc=R_wc, t_wc=t_wc, X=X)
-        Hcc, bc, ApT = _linearize_soa(cur, huber_delta)
-        dx, dX = _solve_schur_soa(Hcc, bc, ApT, p.point_valid, lam, n_fix)
+        if soa:
+            Hcc, bc, ApT = _linearize_soa(cur, huber_delta)
+            dx, dX = _solve_schur_soa(Hcc, bc, ApT, p.point_valid, lam,
+                                      n_fix)
+        else:
+            Hcc, bc, Hpp, bp, W = _linearize(cur, huber_delta, plans)
+            dx, dX = _solve_schur(Hcc, bc, Hpp, bp, W, p.point_valid, lam,
+                                  n_fix)
         # trial update: left-mult SE(3) on poses (ref cpp:1081-1095)
         dR = lie.so3_exp(dx[:, :3])
         R_try = dR @ R_wc
         t_try = torch.einsum("fij,fj->fi", dR, t_wc) + dx[:, 3:]
         X_try = X + dX if update_points else X
         trial = p._replace(R_wc=R_try, t_wc=t_try, X=X_try)
-        new_cost = ba_cost_soa(trial, huber_delta)
+        new_cost = ba_cost(trial, huber_delta)
         accept = new_cost < cost
         R_wc = torch.where(accept, R_try, R_wc)
         t_wc = torch.where(accept, t_try, t_wc)
@@ -364,7 +514,7 @@ def refine_points(p: BAProblem, iters: int = 5, lambda0: float = 1e-3,
     pv_obs = p.point_valid[pid]
 
     X = p.X
-    cost0 = ba_cost_soa(p, huber_delta)
+    cost0 = ba_cost(p, huber_delta)
     cost = cost0
     lam = torch.as_tensor(lambda0, dtype=dtype, device=dev)
     hist = []
@@ -396,7 +546,7 @@ def refine_points(p: BAProblem, iters: int = 5, lambda0: float = 1e-3,
         Hd = torch.where(p.point_valid[:, None, None], Hd, eye3)
         dX = -torch.einsum("pij,pj->pi", linalg.inv3(Hd), bp)
         X_try = torch.where(p.point_valid[:, None], X + dX, X)
-        new_cost = ba_cost_soa(p._replace(X=X_try), huber_delta)
+        new_cost = ba_cost(p._replace(X=X_try), huber_delta)
         accept = new_cost < cost
         X = torch.where(accept, X_try, X)
         cost = torch.where(accept, new_cost, cost)

@@ -6,8 +6,8 @@ hold the plain versions (the arithmetic the CUDA kernels repeat) to the JAX
 functions on the same numpy inputs.  Where the JAX function reaches a Pallas
 kernel it runs in interpret mode, as tests/test_pallas_kernels.py runs it.
 The kernels themselves are held to the plain versions on the card by
-``chip_smoke.py``; the test that needs the card is marked ``gpu`` and skips
-here.
+``chip_smoke.py`` and by tests/test_torch_card.py (marked ``gpu``, free of
+JAX so that it runs on the card's machine).
 """
 
 import importlib.util
@@ -598,54 +598,3 @@ def test_torch_default_device_raises_without_cuda(rng, entry):
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
-
-
-@pytest.mark.gpu
-def test_torch_kernels_match_plain_on_card(rng):
-    """The five CUDA kernels against their plain versions on the card
-    (``python3 chip_smoke.py`` runs the same comparison at full size)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    dev = torch.device("cuda")
-    a = torch.as_tensor(make_textured(rng, 120, 160), device=dev)
-    b = torch.roll(a, (2, -3), (0, 1)).contiguous()
-    # K1 bit for bit at every radius the port uses and the ends of its
-    # range, on whole and partial 32x32 tiles
-    for img in (a, torch.as_tensor(make_textured(rng, 61, 83), device=dev)):
-        for r in (1, 2, 3, 8):
-            out = shi_tomasi_kernel.shi_tomasi_score(img, r)
-            ref = shi_tomasi_kernel.shi_tomasi_score_plain(img, r)
-            assert torch.equal(out, ref), (tuple(img.shape), r)
-    pts = torch.as_tensor(rng.uniform(30, [130, 90], (100, 2)),
-                          dtype=torch.float32, device=dev)
-    v0 = torch.zeros_like(pts)
-    # K5 and K2 bit for bit, garbage starts included, at the widths of LK
-    # radius 1, 3, 6 and 10 and at one width outside the compiled set
-    st = torch.as_tensor(rng.integers(-40, 200, (100, 2)),
-                         dtype=torch.int32, device=dev)
-    st[0] = torch.tensor([-2**31, 2**31 - 1], dtype=torch.int32)
-    m = lk_kernels.MARGIN
-    for w0, w1 in ((6, 6 + 2 * m), (10, 10 + 2 * m), (16, 16 + 2 * m),
-                   (24, 24 + 2 * m), (17, 17 + 2 * m)):
-        for w in (w0, w1):
-            assert torch.equal(lk_kernels.lk_gather(b, st, w),
-                               lk_kernels.lk_gather_plain(b, st, w)), w
-        got = lk_kernels.lk_gather_pair(a, st, w0, b, st.flip(0), w1)
-        want = lk_kernels.lk_gather_pair_plain(a, st, w0, b, st.flip(0), w1)
-        assert all(torch.equal(x, y) for x, y in zip(got, want)), (w0, w1)
-    # K3, and K4 on K5's windows, at the default config's radius (P = 11)
-    # and the bench's (P = 13)
-    for radius in (5, 6):
-        P = 2 * radius + 1
-        out = lk_kernels.lk_level_fused(a, b, pts, v0, 8, radius, 1e-4)
-        ref = lk_kernels.lk_level_plain(a, b, pts, v0, 8, radius, 1e-4)
-        assert float((out - ref).abs().max()) <= 1e-4, radius
-        o0 = pts - radius
-        blk0, a0 = lk_kernels._load_blocks(a, o0, P, 0, lk_kernels.lk_gather)
-        tmpl = lk_kernels.template_patch(blk0, a0, o0, P)
-        blk1, a1 = lk_kernels._load_blocks(b, o0, P, lk_kernels.MARGIN,
-                                           lk_kernels.lk_gather)
-        out = lk_kernels.lk_level_tmpl(blk1, tmpl, o0 - a1, v0, 8, 1e-4)
-        ref = lk_kernels.lk_level_tmpl_plain(blk1, tmpl, o0 - a1, v0, 8,
-                                             1e-4)
-        assert float((out - ref).abs().max()) <= 1e-4, radius

@@ -336,8 +336,10 @@ def test_torch_scan_observation_backfill(torch_run):
                                   "default_config"])
 def test_torch_scan_refuses_what_waits(synthetic_ring, case):
     """What the constructor refuses, and what it now takes: the ORB loop
-    flavor is not ported and says so; use_gt_scale without the dataset's
-    GT records raises ValueError, as in the JAX package; the default
+    flavor constructs, as in the JAX package, and keeps its keyframe images
+    for the ORB features (it is held to the JAX package in
+    tests/test_torch_orb.py); use_gt_scale without the dataset's GT
+    records raises ValueError, as in the JAX package; the default
     configuration (loop closure with device-side verification, the final
     structure refinement) constructs."""
     K = synthetic_ring.K
@@ -345,8 +347,11 @@ def test_torch_scan_refuses_what_waits(synthetic_ring, case):
         cfg = dataclasses.replace(
             _small_cfg(config),
             loop=config.LoopConfig(enabled=True, method="orb"))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sp.ScanSfM(K, cfg, n_frames=12, device="cpu")
+        jsp.ScanSfM(K, dataclasses.replace(
+            _small_cfg(jconfig),
+            loop=jconfig.LoopConfig(enabled=True, method="orb")), n_frames=12)
+        s = sp.ScanSfM(K, cfg, n_frames=12, device="cpu")
+        assert s._keep_images and s._orb_bank is None and not s._orb_ids
     elif case == "gt_scale_without_records":
         cfg = dataclasses.replace(_small_cfg(config), use_gt_scale=True)
         jcfg = dataclasses.replace(_small_cfg(jconfig), use_gt_scale=True)
