@@ -31,7 +31,18 @@ Phases, one JSON line each on standard output:
   cli       ``python -m sfm_tpu_torch --synthetic 8`` in a subprocess, with
             ``--pipeline host`` (the default) and ``--pipeline scan``;
   orb       the ring through ScanSfM with the ORB loop flavor;
-  orb_host  the ring through SfMSystem with the ORB loop flavor.
+  orb_host  the ring through SfMSystem with the ORB loop flavor;
+  multiscene  four 47-frame 640x480 rings (the ring above and three more
+            rings of other textures, bench.py's bench_multiscene layout)
+            through parallel.multi_scan.run_scenes_scan at the bench
+            configuration (loop closure verified on the host), one K3
+            launch per level and direction for all four scenes; then the
+            first ring alone through ScanSfM, which scene 0 must match.
+
+The kernels phase also holds the scene-batched launches of K1 and K3 (four
+rendered frames of the ring, S = 4, the multi-scene runner's level-0
+shapes) against four single launches, bit for bit, and each scene against
+the plain version.
 
 The next-to-last lines are the ``{"kernels": [...]}`` summary and the
 card's name and power limit; the last line is
@@ -41,7 +52,9 @@ kernel phase (a short first check of a changed kernel).  ``--profile`` adds
 a ``profile`` line: frames 1..4 of the ring twice more, plain for the wall
 time and under ``torch.profiler`` for the device's busy time, with the
 estimated idle share and the operators that took most device and most host
-time; and a ``loop_ab`` line: the 47-frame run with loop closure off and on,
+time; a ``profile_scenes`` line: the same for the multi-scene runner's
+frame loop at S = 1 and S = 4, with the kernel launches a frame; and a
+``loop_ab`` line: the 47-frame run with loop closure off and on,
 in turns, for what loop closure costs on this card.
 """
 
@@ -82,6 +95,10 @@ RADII_SEED = 0  # seed of their inputs (tools/chip_lk_survey.py: other seeds)
 ST_RADII = (1, 2, 3, 8)
 GATHER_RADII = (1, 3, 6, 10)
 GATHER_WIN_OTHER = 39
+# the scene-batched checks of K1 and K3: S_SCENES rendered frames of the
+# ring (and each one's next frame for K3), the multi-scene phase's S
+S_SCENES = 4
+SCENE_FRAMES = (0, 12, 24, 36)
 
 
 def emit(obj) -> None:
@@ -592,6 +609,152 @@ def check_lk_gather1(dev, rng, pyr1) -> dict:
     }
 
 
+def bits(t):
+    """The float32 tensor's bit patterns (NaNs compare equal)."""
+    return t.contiguous().view(torch.int32)
+
+
+def check_shi_tomasi_scenes(dev, frames_u8, row) -> dict:
+    """K1 with a scene axis: one launch over the S rendered frames (the
+    bootstrap and replenish shapes of the multi-scene runner, r = 3)
+    against S single launches and each frame's plain version, both bit for
+    bit; timed beside the S single launches.  Added to ``row`` (K1's) as
+    ``scenes``."""
+    from sfm_tpu_torch.ops.kernels import shi_tomasi_kernel as st
+
+    r = 3
+    imgs = torch.stack([torch.as_tensor(f, device=dev).to(torch.float32)
+                        for f in frames_u8]).contiguous()
+    S, H, W = imgs.shape
+    out = st.shi_tomasi_score(imgs, r)
+    single = torch.stack([st.shi_tomasi_score(x, r) for x in imgs])
+    torch.cuda.synchronize()
+    plain = st.shi_tomasi_score_plain(imgs, r)
+    same = bool(torch.equal(bits(out), bits(single)))
+    exact = bool(torch.equal(bits(out), bits(plain)))
+    b_ms, b_by = bound(2 * S * H * W * 4, S * H * W * (4 + 3 + 3 * 4 * r + 10))
+    row["scenes"] = {
+        "shape": [S, H, W, r], "bit_equal_singles": same,
+        "max_abs_err": float((out - plain).abs().max()), "tol": 0.0,
+        "ok": same and exact,
+        "ms": time_ms(lambda: st.shi_tomasi_score(imgs, r)),
+        "ms_singles": time_ms(
+            lambda: [st.shi_tomasi_score(x, r) for x in imgs]),
+        "plain_ms": time_ms(lambda: st.shi_tomasi_score_plain(imgs, r),
+                            n=3, warm=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    row["ok"] = row["ok"] and row["scenes"]["ok"]
+    return row
+
+
+def check_lk_level_scenes(dev, pairs, row) -> dict:
+    """K3 with a scene axis: one launch over S rendered frame pairs at
+    level 0 (each scene's 2200 bootstrap corners of its first frame, the
+    level-0 flow from the plain version's pass over levels 3..1, so the
+    runner's launch) against S single launches, bit for bit; and each
+    scene against the plain version under ``check_lk_level``'s rule for
+    border tracks, applied to every track: tracks the plain version's own
+    perturbations (float64, transposed, one rounding further) move by
+    under 1e-4 px agree within 1e-3 px; the kernel ends more than 1e-3 px
+    from the plain version on no more tracks than the perturbations move
+    that far; the median is under 1e-5 px; every flow is finite.  (The
+    interior bar of 1e-4 px holds on ``check_lk_level``'s textured inputs,
+    where every interior track converges; on rendered frames a track far
+    from the border can converge slowly or not at all, at an occluding
+    edge or on weak texture, and amplify the last bit like a border track.
+    ``max_abs_err_interior_stable`` and ``max_abs_err_interior_all`` print
+    the interior's worst with and without the split.)  Timed beside the S
+    single launches.  Added to ``row`` (K3's) as ``scenes``."""
+    from sfm_tpu_torch.models import tracker
+    from sfm_tpu_torch.ops import image as im
+    from sfm_tpu_torch.ops.kernels import lk_kernels as lk
+
+    kcfg = smoke_config().klt
+    P = 2 * RADIUS + 1
+    WIN = P + 2 * lk.MARGIN + 3
+    pyrs = [[im.build_pyramid(torch.as_tensor(f, device=dev)
+                              .to(torch.float32), LEVELS) for f in pair]
+            for pair in pairs]
+    img0 = torch.stack([p[0][0] for p in pyrs]).contiguous()
+    img1 = torch.stack([p[1][0] for p in pyrs]).contiguous()
+    S, H, W = img0.shape
+    p0 = torch.stack([tracker.bootstrap(x, kcfg, device=dev).pos
+                      for x in img0])
+    v0 = []
+    for s in range(S):
+        v = torch.zeros_like(p0[s])
+        for L in range(LEVELS - 1, 0, -1):
+            v = 2.0 * lk.lk_level_plain(
+                pyrs[s][0][L].contiguous(), pyrs[s][1][L].contiguous(),
+                p0[s] / 2 ** L, v, ITERS, RADIUS, 1e-4)
+        v0.append(v)
+    v0 = torch.stack(v0)
+
+    def level(a, b, p, v, which):
+        if which == "kernel":
+            return lk.lk_level_fused(a, b, p, v, ITERS, RADIUS, 1e-4)
+        cast = (lambda t: t.double()) if which == "plain64" else (lambda t: t)
+        return lk.lk_level_plain(cast(a), cast(b), cast(p), cast(v), ITERS,
+                                 RADIUS, 1e-4)
+
+    out = level(img0, img1, p0, v0, "kernel")
+    single = torch.stack([level(img0[s], img1[s], p0[s], v0[s], "kernel")
+                          for s in range(S)])
+    torch.cuda.synchronize()
+    same = bool(torch.equal(bits(out), bits(single)))
+    per_scene, ok = [], same
+
+    def swap(a):
+        return a[..., [1, 0]].contiguous()
+    for s in range(S):
+        a, b, p, v = img0[s], img1[s], p0[s], v0[s]
+        ref = level(a, b, p, v, "plain")
+        gaps = torch.stack([
+            (ref - swap(level(a.T.contiguous(), b.T.contiguous(), swap(p),
+                              swap(v), "plain"))).abs().amax(-1).double(),
+            (ref.double() - level(a, b, p, v, "plain64")).abs().amax(-1),
+            (ref - level(a, b, torch.nextafter(
+                p, torch.full_like(p, float("inf"))), v,
+                "plain")).abs().amax(-1).double()])
+        gap = gaps.amax(0)
+        d = (out[s] - ref).abs().amax(-1)
+        inner = ((p[:, 0] >= WIN) & (p[:, 0] <= W - 1 - WIN)
+                 & (p[:, 1] >= WIN) & (p[:, 1] <= H - 1 - WIN))
+        stable = gap < 1e-4
+        err_s = float(d[stable].max())
+        err_i = float(d[inner & stable].max())
+        far, far_plain = int((d > 1e-3).sum()), int((gap > 1e-3).sum())
+        med = float(d.median())
+        finite = bool(torch.isfinite(out[s]).all())
+        good = (finite and err_s <= 1e-3 and far <= far_plain
+                and med < 1e-5)
+        ok &= good
+        per_scene.append({
+            "max_abs_err_stable": err_s,
+            "max_abs_err_interior_stable": err_i,
+            "max_abs_err_interior_all": float(d[inner].max()),
+            "n_stable": int(stable.sum()), "far": [far, far_plain],
+            "median_abs_err": med, "finite": finite, "ok": good})
+    n_map, n_px = (P + 2) * (P + 2), P * P
+    flops = S * T_TRACKS * (ITERS * (n_map * 7 + n_px * 15) + n_px * 7)
+    b_ms, b_by = bound(2 * S * H * W * 4 + S * T_TRACKS * 24, flops)
+    row["scenes"] = {
+        "shape": [S, T_TRACKS, P, WIN, ITERS], "bit_equal_singles": same,
+        "max_abs_err": max(x["max_abs_err_stable"] for x in per_scene),
+        "tol": 1e-3, "per_scene": per_scene, "ok": bool(ok),
+        "ms": time_ms(lambda: level(img0, img1, p0, v0, "kernel")),
+        "ms_singles": time_ms(lambda: [
+            level(img0[s], img1[s], p0[s], v0[s], "kernel")
+            for s in range(S)]),
+        "plain_ms": time_ms(lambda: level(img0, img1, p0, v0, "plain"),
+                            n=3, warm=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    row["ok"] = row["ok"] and row["scenes"]["ok"]
+    return row
+
+
 def ptxas_summary(log: str) -> list[dict]:
     """Registers and spilled bytes of each kernel from ``nvcc -Xptxas
     -v``'s log, the kernel named as base<template argument>."""
@@ -622,7 +785,7 @@ def ptxas_summary(log: str) -> list[dict]:
     return out
 
 
-def phase_kernels(dev, frame0) -> list[dict]:
+def phase_kernels(dev, frame0, scene_pairs) -> list[dict]:
     rng = np.random.default_rng(0)
     # the checks that came after rng's sequence of draws was fixed draw
     # from aux, so that K3's and K4's inputs stay those of earlier commits
@@ -638,6 +801,9 @@ def phase_kernels(dev, frame0) -> list[dict]:
         # the other radii after the rows above, which keep their inputs
         for i, level in ((2, k3_level), (3, k4_level)):
             rows[i] = check_lk_level_radii(dev, pyr0, pyr1, level, rows[i])
+        # the scene-batched launches of the multi-scene runner
+        check_shi_tomasi_scenes(dev, [a for a, _ in scene_pairs], rows[0])
+        check_lk_level_scenes(dev, scene_pairs, rows[2])
     for r in rows:
         r["kernel_ms"] = r["ms"]
     return rows
@@ -1009,6 +1175,70 @@ def phase_profile(dev, n_frames: int = 5, top: int = 12) -> dict:
     }
 
 
+def phase_profile_scenes(dev, n_frames: int = 5) -> dict:
+    """The multi-scene runner's frame loop at S = 1 and S = 4
+    (``_bootstrap_scenes``, then frames 1..``n_frames``-1 in one
+    ``_run_chunk_scenes`` call; scene s is the ring with texture seed 7 +
+    s), plain for the wall time and under torch.profiler for the device's
+    busy time and the kernel launches a frame (all scenes together)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sfm_tpu_torch.parallel import multi_scan as ms
+    from sfm_tpu_torch.utils.dataset import TempleRing
+    from sfm_tpu_torch.utils.synthetic import generate_dataset
+
+    cfg = smoke_config()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0.0))
+    out = {"phase": "profile_scenes", "frames": n_frames - 1}
+    with tempfile.TemporaryDirectory(prefix="sfm_prof_ms_") as tmp:
+        grays = []
+        for s in range(S_SCENES):
+            spec = dataclasses.replace(short_ring_spec(n_frames),
+                                       seed=ring_spec().seed + s)
+            generate_dataset(Path(tmp) / f"s{s}", spec,
+                             name_prefix="templeR")
+            ds = TempleRing.from_dir(Path(tmp) / f"s{s}")
+            grays.append(torch.stack([torch.as_tensor(ds.load_gray(i))
+                                      for i in range(n_frames)]).to(dev))
+        Kf = torch.as_tensor(ds.K, dtype=torch.float32, device=dev)
+
+        def run_pass(S):
+            carries = ms._bootstrap_scenes(
+                cfg, 64, 16384, torch.stack([g[0] for g in grays[:S]]), 0,
+                [ms.scene_seed(cfg.ransac.seed, s) for s in range(S)])
+            imgs = torch.stack([g[1:] for g in grays[:S]])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ms._run_chunk_scenes(cfg, 1024, Kf, carries, imgs,
+                                 np.arange(1, n_frames),
+                                 np.ones(n_frames - 1, bool))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        for S in (1, S_SCENES):
+            run_pass(S)  # first calls of this shape
+            wall_ms = run_pass(S)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run_pass(S)
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == cuda]
+            n = n_frames - 1
+            busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+            out[f"S{S}"] = {
+                "wall_ms_per_frame": wall_ms / n,
+                "device_busy_ms_per_frame": busy_ms / n,
+                "device_idle_share_estimate": 1.0 - busy_ms / wall_ms,
+                "kernel_launches_per_frame":
+                    sum(e.count for e in kernels) / n,
+            }
+    return out
+
+
 def phase_loop_ab(dev) -> dict:
     """What loop closure costs end to end: the 47-frame ring at the bench
     configuration with loop closure and the final refinement off and on,
@@ -1240,6 +1470,101 @@ def phase_orb_host(dev) -> tuple[dict, dict]:
     return line, counts
 
 
+def phase_multiscene(dev) -> tuple[dict, dict]:
+    """bench.py's bench_multiscene layout on the card: scene 0 the ring of
+    ``ring_spec()``, scenes 1-3 rings of the same spec with texture seeds
+    8, 9 and 10; 47 frames each through
+    ``parallel.multi_scan.run_scenes_scan`` at ``smoke_config()``, chunk
+    16, loop closure verified on the host (the runner forces it, as the
+    JAX package's does).  Launch counts are reset just before the run and
+    read just after.  Then scene 0's ring alone through ``ScanSfM`` with
+    the same configuration, host verification and chunk 16: scene 0 must
+    have its keyframe frames and loop edges, and centers within 1e-5."""
+    import dataclasses
+
+    from sfm_tpu_torch.models.scan_pipeline import ScanSfM
+    from sfm_tpu_torch.parallel.multi_scan import run_scenes_scan
+    from sfm_tpu_torch.utils.dataset import TempleRing
+    from sfm_tpu_torch.utils.synthetic import generate_dataset
+
+    cfg = smoke_config()
+    with tempfile.TemporaryDirectory(prefix="sfm_ms_") as tmp:
+        tmp = Path(tmp)
+        dss = []
+        for s in range(S_SCENES):
+            spec = dataclasses.replace(ring_spec(), seed=ring_spec().seed + s)
+            generate_dataset(tmp / f"scene{s}", spec, name_prefix="templeR")
+            dss.append(TempleRing.from_dir(tmp / f"scene{s}"))
+        images = [[d.load_gray(i) for i in range(FRAMES)] for d in dss]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_scenes_scan(dss, cfg, frames=FRAMES, chunk=16,
+                              images=images, device=dev,
+                              out_dirs=[tmp / f"out{s}"
+                                        for s in range(S_SCENES)])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_launches()
+        views = res["views"]
+        ratios = [ate_ratio(v.kfs, d) for v, d in zip(views, dss)]
+        exported = all((tmp / f"out{s}" / "keyframes_camera_centers.csv")
+                       .exists() for s in range(S_SCENES))
+
+        cfg1 = dataclasses.replace(cfg, loop=dataclasses.replace(
+            cfg.loop, device_verify=False))
+        one = ScanSfM(dss[0].K, cfg1, n_frames=FRAMES, chunk=16,
+                      p_cap=16384, p_ba=1024, device=dev)
+        t1 = time.perf_counter()
+        for i in range(FRAMES):
+            one.process(i, dss[0].records[i].img, images[0][i])
+        one.finalize()
+        dt_one = time.perf_counter() - t1
+    loops = [[(e.i, e.j) for e in le] for le in res["loop_edges"]]
+    host_ver = sum(v.host_verifications for v in views)
+    c_one = np.stack([kf.center for kf in one.kfs])
+    same_kf = (list(res["kf_frames"][0])
+               == [kf.frame_idx for kf in one.kfs])
+    d_centers = (float(np.abs(res["centers"][0] - c_one).max())
+                 if same_kf else float("inf"))
+    checks = {
+        "ate": all(r < 0.05 for r in ratios),
+        "keyframes": all(int(k) >= 30 for k in res["n_keyframes"]),
+        "map_points": all(int(k) > 2000 for k in res["n_points"]),
+        "scene0_loop_edges": len(loops[0]) >= 1,
+        # the tracker's two passes per frame for ALL scenes at once, plus
+        # each host loop verification's LK pass: launches not times S
+        "k3_launches": counts["lk_level_fused"]
+        == (FRAMES - 1 + host_ver) * LEVELS * 2,
+        "k1_launches": counts["shi_tomasi_score"] >= 1,
+        "exported": exported,
+        "finite": all(bool(np.isfinite(c).all()) for c in res["centers"]),
+        "scene0_keyframes_match": same_kf,
+        "scene0_loop_edges_match": loops[0] == [(e.i, e.j)
+                                                for e in one.loop_edges],
+        "scene0_centers_match": d_centers <= 1e-5,
+    }
+    line = {
+        "phase": "multiscene", "scenes": S_SCENES, "frames": FRAMES,
+        "wall_s": dt, "scene_frames_per_sec": S_SCENES * FRAMES / dt,
+        "keyframes": [int(k) for k in res["n_keyframes"]],
+        "map_points": [int(k) for k in res["n_points"]],
+        "loop_edges": loops, "ate_ratio": ratios,
+        "host_verifications": [v.host_verifications for v in views],
+        "timers": res["timers"], "launches": counts,
+        "single_scene0": {
+            "wall_s": dt_one, "keyframes": len(one.kfs),
+            "map_points": len(one.map_xyz),
+            "centers_max_abs_diff": d_centers,
+            "centers_bit_equal": same_kf and bool(
+                np.array_equal(res["centers"][0], c_one)),
+            "map_bit_equal": bool(np.array_equal(views[0].map_xyz,
+                                                 one.map_xyz))},
+        "checks": checks, "ok": all(checks.values()),
+    }
+    return line, counts
+
+
 def short_ring_spec(n: int):
     """The first ``n`` cameras of the ring (the angular step is kept)."""
     import dataclasses
@@ -1286,8 +1611,11 @@ def main() -> int:
 
     spec = ring_spec()
     K, Rs, ts, _, _ = make_ring_cameras(spec)
-    frame0 = render_frame(spec, K, Rs[0], ts[0], _make_texture(spec))
-    rows = phase_kernels(dev, frame0)
+    tex = _make_texture(spec)
+    frame0 = render_frame(spec, K, Rs[0], ts[0], tex)
+    scene_pairs = [tuple(render_frame(spec, K, Rs[i], ts[i], tex)
+                         for i in (f, f + 1)) for f in SCENE_FRAMES]
+    rows = phase_kernels(dev, frame0, scene_pairs)
     emit({"phase": "kernels", "kernels": rows})
     if not all(r["ok"] for r in rows):
         print("chip_smoke: a kernel disagrees with its plain version",
@@ -1310,7 +1638,8 @@ def main() -> int:
         return 1
     by_path = {"pipeline": counts, "arms": arm_counts}
     for name, phase in (("host", phase_host), ("cli", phase_cli),
-                        ("orb", phase_orb), ("orb_host", phase_orb_host)):
+                        ("orb", phase_orb), ("orb_host", phase_orb_host),
+                        ("multiscene", phase_multiscene)):
         with torch.no_grad():
             out = phase(dev)
         line, path_counts = out if isinstance(out, tuple) else (out, None)
@@ -1323,6 +1652,7 @@ def main() -> int:
     if args.profile:
         with torch.no_grad():
             emit(phase_profile(dev))
+            emit(phase_profile_scenes(dev))
             emit(phase_loop_ab(dev))
 
     for r in rows:
@@ -1335,7 +1665,7 @@ def main() -> int:
     extra = ("ms_r2", "max_abs_err_border", "tol_border", "max_abs_err_step",
              "max_step_excess", "tol_step", "border_far", "border_far_by",
              "radii_checked", "widths_checked", "library_two_calls_ms",
-             "launches_by_path")
+             "launches_by_path", "scenes")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in rows]})
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-// K3 lk_level_fused: all LK iterations of one pyramid level, for all tracks.
+// K3 lk_level_fused: all LK iterations of one pyramid level, for all tracks
+// of one scene or of a stack of scenes.
 //
 // Replaces: sfm_tpu/ops/pallas/block_gather_kernel.py load_blocks_pair_pallas
 //   together with sfm_tpu/ops/pallas/lk_iter_kernel.py lk_iter_tmpl_pallas
@@ -26,6 +27,14 @@
 //   relative to the clamped window start and to nothing else.
 // The iteration loop is sfm::lk_iterate (lk_iterate.cuh), which the
 // template-passed-in kernel K4 (lk_level_tmpl.cu) runs too.
+//
+// Scene axis (the JAX package runs this kernel under jax.vmap over scenes,
+// sfm_tpu/parallel/multi_scan.py): img0/img1 may be S stacked H x W images
+// and the tracks S stacked tables of T_scene tracks each, flattened to
+// T = S * T_scene.  Track t belongs to scene t / T_scene and reads that
+// scene's images; nothing else changes, so one launch over S scenes gives,
+// track for track, the bits of S launches over one scene.  A single image
+// pair is the case S = 1 (T_scene = T).
 //
 // Arithmetic follows the plain PyTorch version operation for operation
 // (__fmul_rn/__fadd_rn keep the compiler from contracting a*b+c into an fma,
@@ -81,7 +90,8 @@ __global__ void lk_level_fused_kernel(const float* __restrict__ img0,
                                       const float* __restrict__ img1, int H,
                                       int W, const float* __restrict__ p0,
                                       const float* __restrict__ v_in, int T,
-                                      int radius, int margin, int iters,
+                                      int T_scene, int radius, int margin,
+                                      int iters,
                                       float min_det,
                                       float* __restrict__ v_out) {
     extern __shared__ float smem[];
@@ -94,6 +104,9 @@ __global__ void lk_level_fused_kernel(const float* __restrict__ img0,
     const int lane = threadIdx.x & 31;
     const int t = blockIdx.x * kTracksPerBlock + warp;
     if (t >= T) return;  // whole warp leaves together
+    const size_t scene_off = (size_t)(t / T_scene) * H * W;
+    img0 += scene_off;
+    img1 += scene_off;
 
     float* B1 = smem + warp * fused_floats_per_track(P, margin);
     float* B0 = B1 + WIN * WINS;
@@ -138,8 +151,9 @@ __global__ void lk_level_fused_kernel(const float* __restrict__ img0,
 
 template <int kP>
 int launch(const float* img0, const float* img1, int H, int W,
-           const float* p0, const float* v_in, int T, int radius, int margin,
-           int iters, float min_det, float* v_out, cudaStream_t stream) {
+           const float* p0, const float* v_in, int T, int T_scene, int radius,
+           int margin, int iters, float min_det, float* v_out,
+           cudaStream_t stream) {
     const int P = 2 * radius + 1;
     const size_t bytes = (size_t)kTracksPerBlock *
                          fused_floats_per_track(P, margin) * sizeof(float);
@@ -152,22 +166,26 @@ int launch(const float* img0, const float* img1, int H, int W,
     const int blocks = (T + kTracksPerBlock - 1) / kTracksPerBlock;
     lk_level_fused_kernel<kP><<<blocks, 32 * kTracksPerBlock, bytes,
                                 stream>>>(img0, img1, H, W, p0, v_in, T,
-                                          radius, margin, iters, min_det,
-                                          v_out);
+                                          T_scene, radius, margin, iters,
+                                          min_det, v_out);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// img0/img1: S stacked H x W images; p0/v_in/v_out: T = S * T_scene tracks,
+// scene by scene.
 extern "C" int sfm_lk_level_fused(const void* img0, const void* img1, int H,
                                   int W, const void* p0, const void* v_in,
-                                  int T, int radius, int margin, int iters,
-                                  float min_det, void* v_out, void* stream) {
+                                  int T, int T_scene, int radius, int margin,
+                                  int iters, float min_det, void* v_out,
+                                  void* stream) {
     if (T <= 0) return 0;
+    if (T_scene <= 0 || T % T_scene != 0) return (int)cudaErrorInvalidValue;
     return sfm::dispatch_patch(radius, [&](auto kp) {
         return launch<decltype(kp)::value>(
             (const float*)img0, (const float*)img1, H, W, (const float*)p0,
-            (const float*)v_in, T, radius, margin, iters, min_det,
+            (const float*)v_in, T, T_scene, radius, margin, iters, min_det,
             (float*)v_out, (cudaStream_t)stream);
     });
 }

@@ -1,4 +1,5 @@
-// K1 shi_tomasi_score: min-eigenvalue corner response map of one image.
+// K1 shi_tomasi_score: min-eigenvalue corner response map of one image, or
+// of each image of a stack.
 //
 // Replaces: sfm_tpu/ops/pallas/shi_tomasi_kernel.py shi_tomasi_score_pallas.
 //
@@ -35,6 +36,12 @@
 //   - the last 2r+1 row sums of its columns stay in the lane's registers
 //     (the row loop is unrolled, so the ring's indices are constants): the
 //     column sums never pass through shared memory.
+// Scene axis (the JAX package runs this kernel under jax.vmap over scenes,
+// sfm_tpu/parallel/multi_scan.py): S stacked H x W images, blockIdx.z the
+// image, at a stride of H * W floats in and out.  Each image's blocks do
+// what they do for one image, so one launch over S images gives the bits
+// of S launches.
+//
 // Summation order is the plain version's: products __fmul_rn, rows first,
 // then columns, each centre, then -d, +d outward with __fadd_rn; the
 // response with _rn operations.  Kernel and plain version agree bit for
@@ -140,6 +147,8 @@ __global__ void __launch_bounds__(kThreads)
 
     const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    img += (size_t)blockIdx.z * H * W;
+    out += (size_t)blockIdx.z * H * W;
     stage_tile<R>(img, H, W, x0 - G::A, y0 - R - 1, simg, tid);
 
     // product slot k of this lane is column x0 - R + lane + 32 k: whether
@@ -239,13 +248,13 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launches the instantiation of radius r (1..kMaxRadius).
 template <int R = 1>
-int launch(int r, const float* img, int H, int W, float* out,
+int launch(int r, const float* img, int S, int H, int W, float* out,
            cudaStream_t stream) {
     if constexpr (R > kMaxRadius) {
         return (int)cudaErrorInvalidValue;
     } else {
-        if (r != R) return launch<R + 1>(r, img, H, W, out, stream);
-        dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+        if (r != R) return launch<R + 1>(r, img, S, H, W, out, stream);
+        dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, S);
         shi_tomasi_kernel<R><<<grid, kThreads, 0, stream>>>(img, H, W, out);
         return (int)cudaGetLastError();
     }
@@ -253,9 +262,11 @@ int launch(int r, const float* img, int H, int W, float* out,
 
 }  // namespace
 
-extern "C" int sfm_shi_tomasi(const void* img, int H, int W, int r, void* out,
-                              void* stream) {
-    if (H <= 0 || W <= 0) return 0;
-    return launch(r, (const float*)img, H, W, (float*)out,
+// img/out: S stacked H x W images (S = 1: one image).
+extern "C" int sfm_shi_tomasi(const void* img, int S, int H, int W, int r,
+                              void* out, void* stream) {
+    if (S <= 0 || H <= 0 || W <= 0) return 0;
+    if (S > 65535) return (int)cudaErrorInvalidValue;  // grid.z
+    return launch(r, (const float*)img, S, H, W, (float*)out,
                   (cudaStream_t)stream);
 }

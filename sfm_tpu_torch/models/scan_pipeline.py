@@ -216,9 +216,19 @@ def bootstrap_carry(cfg: SystemConfig, kf_cap: int, p_cap: int, img0,
     """First frame: detect corners, register keyframe 0 (ref py:1022-1028
     bootstrap branch)."""
     dev = resolve(device)
-    T = cfg.klt.max_tracks
     pyr = _build_pyr(to_device(img0, dev), cfg.klt.pyr_levels)
     trk = tracker.bootstrap(pyr[0], cfg.klt, device=dev)
+    return _carry_from_track(cfg, kf_cap, p_cap, pyr, trk, idx0,
+                             cfg.ransac.seed if seed is None else seed)
+
+
+def _carry_from_track(cfg: SystemConfig, kf_cap: int, p_cap: int, pyr,
+                      trk: tracker.TrackerState, idx0: int, seed: int
+                      ) -> ScanCarry:
+    """The bootstrap carry from the first frame's pyramid and its fresh
+    track table, with a generator seeded with ``seed``."""
+    dev = trk.pos.device
+    T = cfg.klt.max_tracks
     store_img = cfg.loop.enabled and cfg.loop.device_verify
     ring = _empty_ring(kf_cap, T, dev,
                        *(pyr[0].shape if store_img else (1, 1)))
@@ -231,7 +241,7 @@ def bootstrap_carry(cfg: SystemConfig, kf_cap: int, p_cap: int, img0,
     if store_img:
         ring.img[0] = pyr[0].to(torch.uint8)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.ransac.seed if seed is None else seed)
+    gen.manual_seed(seed)
     minus1 = -torch.ones((T,), dtype=i32, device=dev)
     return ScanCarry(
         trk=trk,
@@ -785,10 +795,20 @@ def _track_and_pose_rp(cfg: SystemConfig, Kf, carry: ScanCarry, img,
     and rp is ok, so rp can serve as the keyframe edge); rp is the frame's
     two-view RelPose; y_pre = (rp_ok, rp_inliers, parallax, n_matched) as
     f32 scalars.  ``pri``: optional (H,T) sampling priorities (tests)."""
-    dev = carry.X.device
     pyr = _build_pyr(img, cfg.klt.pyr_levels)
     trk, prev_pos, matched = tracker.step(
-        carry.prev_pyr, pyr, carry.trk, cfg.klt, device=dev)
+        carry.prev_pyr, pyr, carry.trk, cfg.klt, device=carry.X.device)
+    return _pose_from_track(cfg, Kf, carry, pyr, trk, prev_pos, matched,
+                            idx, pri)
+
+
+def _pose_from_track(cfg: SystemConfig, Kf, carry: ScanCarry, pyr,
+                     trk: tracker.TrackerState, prev_pos, matched, idx: int,
+                     pri=None):
+    """The rest of the prefix after the tracker step (which the
+    multi-scene runner makes for all scenes at once): two-view LO-RANSAC,
+    pose compose and keyframe policy.  Same returns as
+    ``_track_and_pose_rp``."""
     # track death / replenish clears slot associations
     slot_pid = torch.where(matched, carry.slot_pid, -1).to(i32)
     fo_kf = torch.where(matched, carry.fo_kf, -1).to(i32)
@@ -928,19 +948,57 @@ def _loop_verify_stage(gen, Kf, img_old, img_new, levels: int,
 # ---------------------------------------------------------------------------
 
 
-def _ring_pose_stage(carry: ScanCarry) -> np.ndarray:
-    """ONE packed pull of the ring poses + odometry edges + bookkeeping
-    used by the host between chunks (loop gating, pose-graph assembly),
-    as float64 numpy."""
+def _ring_pose_flat(carry: ScanCarry) -> torch.Tensor:
+    """The ring poses + odometry edges + bookkeeping used by the host
+    between chunks (loop gating, pose-graph assembly), packed into one f32
+    vector on the device (layout: ``_unpack_ring_poses``)."""
     ring = carry.ring
-    flat = torch.cat([
+    return torch.cat([
         ring.R_cw.reshape(-1), ring.t_cw.reshape(-1),
         ring.frame.to(f32), ring.kvalid.to(f32),
         ring.e_Rji.reshape(-1), ring.e_tji.reshape(-1),
         ring.e_inl.to(f32), ring.e_valid.to(f32),
         carry.kf_count.to(f32)[None],
     ])
-    return flat.cpu().numpy().astype(np.float64)
+
+
+def _ring_pose_stage(carry: ScanCarry) -> np.ndarray:
+    """ONE packed pull of ``_ring_pose_flat``, as float64 numpy."""
+    return _ring_pose_flat(carry).cpu().numpy().astype(np.float64)
+
+
+_DRAIN_FIELDS = ("R_cw", "t_cw", "frame", "uv", "ids", "tvalid", "pid",
+                 "desc", "e_Rji", "e_tji", "e_inl", "e_valid")
+
+
+def _drain_stage(carry: ScanCarry) -> torch.Tensor:
+    """The whole drainable device state packed into ONE flat float64
+    vector on the device (layout: ``_unpack_drain``): one pull instead of
+    one per field.  Every field is float32, int32 or bool, so float64
+    holds it exactly."""
+    ring = carry.ring
+    parts = [getattr(ring, k) for k in _DRAIN_FIELDS] + [
+        carry.X, torch.stack([carry.kf_count, carry.n_pts])]
+    return torch.cat([t.reshape(-1).to(torch.float64) for t in parts])
+
+
+def _unpack_drain(flat: np.ndarray, K: int, T: int, D: int, P: int) -> dict:
+    """Host twin of ``_drain_stage``'s layout: float64 / int64 / bool numpy
+    arrays by field, plus ``counts`` = [kf_count, n_pts]."""
+    shapes = [(3, 3), (3,), (), (T, 2), (T,), (T,), (T,), (D,), (3, 3),
+              (3,), (), ()]
+    out, off = {}, 0
+    for name, shp in [*zip(_DRAIN_FIELDS, ((K, *x) for x in shapes)),
+                      ("X", (P, 3)), ("counts", (2,))]:
+        n = int(np.prod(shp))
+        out[name] = flat[off:off + n].reshape(shp)
+        off += n
+    assert off == len(flat)
+    for name in ("frame", "ids", "pid", "e_inl"):
+        out[name] = out[name].astype(np.int64)
+    for name in ("tvalid", "e_valid"):
+        out[name] = out[name] > 0.5
+    return out
 
 
 def _unpack_ring_poses(flat: np.ndarray, K: int) -> dict:
@@ -955,6 +1013,13 @@ def _unpack_ring_poses(flat: np.ndarray, K: int) -> dict:
         "e_valid": flat[K * 27: K * 28] > 0.5,
         "n_kf": int(flat[K * 28]),
     }
+
+
+def _dlt_packed(Ra, ta, xa, Rb, tb, xb):
+    """``triangulate_dlt`` with its three outputs packed into one (N,5)
+    tensor (X3, za, zb): one pull instead of three."""
+    X3, za, zb = triangulate.triangulate_dlt(Ra, ta, xa, Rb, tb, xb)
+    return torch.cat([X3, za[:, None], zb[:, None]], dim=1)
 
 
 def _finalize_refine_core(Kf, ring: KeyframeRing, X, n_pts: int,
@@ -1266,10 +1331,13 @@ class ScanSfM:
             self._pose_graph_pushback(pr=rp)
 
     def _verify_candidates(self, cands: list[tuple[int, int, int]],
-                           rp: dict) -> bool:
+                           rp: dict, verify=None, label: str = "") -> bool:
         """Run the loop verification on already-gated ``(cand_kf, cur_kf,
         cur_frame)`` pairs, appending surviving ``Edge``s.  Returns True
-        if any edge was added (the caller runs the pose-graph pushback)."""
+        if any edge was added (the caller runs the pose-graph pushback).
+        ``verify``: optional stand-in for ``_verify_loop`` with its
+        signature (the multi-scene runner passes its own)."""
+        verify = verify or self._verify_loop
         cs = rp["t_cw"][: rp["n_kf"]]
         frames = rp["frame"]
         found = False
@@ -1278,14 +1346,14 @@ class ScanSfM:
             new_img = self._images.get(cur_frame)
             if old_img is None or new_img is None:
                 continue  # image not retained (non-keyframe)
-            edge = self._verify_loop(cand_kf, cur_kf, old_img, new_img, cs)
+            edge = verify(cand_kf, cur_kf, old_img, new_img, cs)
             if edge is None:
                 continue
             self.loop_edges.append(edge)
             found = True
             self._mark_loop(cur_frame, cand_kf, cur_kf)
-            log.info("loop closure %d -> %d (inliers %d)", cand_kf, cur_kf,
-                     edge.inliers)
+            log.info("loop closure%s %d -> %d (inliers %d)", label, cand_kf,
+                     cur_kf, edge.inliers)
         return found
 
     def _mark_loop(self, frame: int, i: int, j: int) -> None:
@@ -1615,21 +1683,12 @@ class ScanSfM:
 
     # -- finalize + export ---------------------------------------------
     def _drain(self) -> dict:
-        """Pull the drainable device state to the host (float64 / int64 /
-        bool numpy arrays, the layout the JAX twin's ``_unpack_drain``
-        gives)."""
+        """Pull the drainable device state to the host in one pull
+        (float64 / int64 / bool numpy arrays, ``_unpack_drain``)."""
         c = self.carry
-        ring = c.ring
-        d = {}
-        for name in ("R_cw", "t_cw", "uv", "desc", "e_Rji", "e_tji"):
-            d[name] = getattr(ring, name).cpu().numpy().astype(np.float64)
-        for name in ("frame", "ids", "pid", "e_inl"):
-            d[name] = getattr(ring, name).cpu().numpy().astype(np.int64)
-        for name in ("tvalid", "e_valid"):
-            d[name] = getattr(ring, name).cpu().numpy().astype(bool)
-        d["X"] = c.X.cpu().numpy().astype(np.float64)
-        d["counts"] = np.array([int(c.kf_count), int(c.n_pts)], np.float64)
-        return d
+        K_, T_ = c.ring.pid.shape
+        return _unpack_drain(_drain_stage(c).cpu().numpy(), K_, T_,
+                             c.ring.desc.shape[1], c.X.shape[0])
 
     def finalize(self, drained: dict | None = None,
                  refine: bool = True) -> None:
@@ -1637,11 +1696,13 @@ class ScanSfM:
         map, and build the host-side keyframe/edge views.
 
         ``drained``: optional pre-pulled drain dict (the layout of
-        ``_drain``); callers passing it must have no pending frames.  The
-        refinement rounds read the device ring in place, so they run only
-        without ``drained``; with it, a round that would have to run
-        raises (the host twins of those rounds are not ported yet, see
-        ROADMAP.md).  ``refine=False`` skips the rounds."""
+        ``_drain``); callers passing it must have no pending frames.
+        Without ``drained`` the refinement rounds run in
+        ``_finalize_refine_core``, reading the device ring in place; with
+        it they run on the drained arrays through the host twins
+        ``_retriangulate`` and ``_refine_structure``, as in the JAX twin.
+        ``refine=False`` skips the rounds (the multi-scene runner runs
+        them afterwards, parallel/multi_scan._refine_scenes)."""
         assert drained is None or not self._pending, \
             "finalize(drained=...) with pending frames"
         self._flush()
@@ -1670,18 +1731,13 @@ class ScanSfM:
         # polish points with frozen-pose LM (ops/ba.refine_points).  Full
         # pose+point BA here bends the monocular gauge: the trajectory is
         # already optimal from the window BA + PnP + pose graph.
-        if refine and self.refine_rounds > 0:
+        if refine and self.refine_rounds > 0 and drained is None:
             m = int((tvalid & (pid >= 0) & (pid < n_pts)).sum())
             do0 = self._pg_ran and n_pts >= 10
             later = n_pts >= 10
             en_ref = (self.cfg.ba.global_iters > 0 and n_kf >= 3
                       and n_pts >= 10 and m >= 30)
             if do0 or (later and self.refine_rounds > 1) or en_ref:
-                if drained is not None:
-                    raise NotImplementedError(
-                        "finalize(drained=..., refine=True) needs the host "
-                        "twins _retriangulate/_refine_structure, not "
-                        "ported yet: see ROADMAP.md, Queue 1")
                 fx = float(self.K[0, 0])
                 with torch.no_grad():
                     Xd, cost0, cost = _finalize_refine_core(
@@ -1695,6 +1751,16 @@ class ScanSfM:
                     log.info("structure refine: cost %.3e -> %.3e "
                              "(%d kfs, %d pts, %d obs)", float(cost0),
                              float(cost), n_kf, n_pts, m)
+        elif refine:
+            with torch.no_grad():
+                for r in range(self.refine_rounds):
+                    if (self._pg_ran or r > 0) and n_pts >= 10:
+                        X = self._retriangulate(R_cw, t_cw, pid, uv, tvalid,
+                                                X)
+                    if (self.cfg.ba.global_iters > 0 and n_kf >= 3
+                            and n_pts >= 10):
+                        X = self._refine_structure(R_cw, t_cw, pid, uv,
+                                                   tvalid, X)
 
         # gt-scale re-anchor: the window BA fixes only its oldest camera,
         # so the monocular scale gauge drifts NON-UNIFORMLY over a long
@@ -1747,6 +1813,122 @@ class ScanSfM:
             ]
         self._X = X
         self._ring_pid = pid  # (n_kf, T) observation matrix, for tooling
+
+    def _retri_prep(self, R_cw, t_cw, pid, uv, tvalid, X):
+        """Host-side prep for the first-vs-last DLT: pick each point's
+        first/last observing keyframe and build the padded `_dlt_packed`
+        operands.  Returns ``(ops6, ok)``: ``ops6`` the six (Np,...)
+        float32 numpy operands, ``ok`` the (n_pts,) host validity mask.
+        The host twin of the selection inside `_finalize_refine_core`."""
+        n_pts = len(X)
+        kk, ss = np.nonzero(tvalid & (pid >= 0) & (pid < n_pts))
+        p = pid[kk, ss]
+        order = np.lexsort((kk, p))
+        ps, ks, sl = p[order], kk[order], ss[order]
+        firsts = np.searchsorted(ps, np.arange(n_pts), "left")
+        lasts = np.searchsorted(ps, np.arange(n_pts), "right") - 1
+        ok = (lasts >= 0) & (firsts < len(ps)) & (lasts > firsts)
+        fi = np.clip(firsts, 0, len(ps) - 1)
+        li = np.clip(lasts, 0, len(ps) - 1)
+        ka, sa = ks[fi], sl[fi]
+        kb, sb = ks[li], sl[li]
+        ok &= ka != kb
+        R_wc = np.swapaxes(R_cw, -1, -2)
+        t_wc = -np.einsum("fij,fj->fi", R_wc, t_cw)
+        xa = np_geom.normalize_by_K(self.K, uv[ka, sa])
+        xb = np_geom.normalize_by_K(self.K, uv[kb, sb])
+        # padded to a pow2 bucket, as the JAX twin pads (its reason, one
+        # compiled program for every point count, has no counterpart here)
+        Np = _next_pow2(n_pts, lo=1024)
+
+        def pad(a, eye=False):
+            out = (np.tile(np.eye(3, dtype=np.float32), (Np, 1, 1))
+                   if eye else np.zeros((Np, *a.shape[1:]), np.float32))
+            out[: len(a)] = a
+            return out
+
+        ops6 = (pad(R_wc[ka], eye=True), pad(t_wc[ka]), pad(xa),
+                pad(R_wc[kb], eye=True), pad(t_wc[kb]), pad(xb))
+        return ops6, ok
+
+    @staticmethod
+    def _retri_post(packed: np.ndarray, ok: np.ndarray,
+                    X: np.ndarray) -> np.ndarray:
+        """Accept the re-triangulated points that pass the cheirality +
+        finiteness gates; keep the old point otherwise.  ``packed`` is the
+        (n_pts,5) `_dlt_packed` pull (X3, za, zb)."""
+        X3, za, zb = packed[:, :3], packed[:, 3], packed[:, 4]
+        good = ok & (za > 1e-6) & (zb > 1e-6) & np.isfinite(X3).all(-1)
+        return np.where(good[:, None], X3, X)
+
+    def _retriangulate(self, R_cw, t_cw, pid, uv, tvalid, X):
+        """Batched first-vs-last DLT re-triangulation of every map point
+        from the (corrected) keyframe poses, on the drained arrays."""
+        ops6, ok = self._retri_prep(R_cw, t_cw, pid, uv, tvalid, X)
+        packed = _dlt_packed(*(to_device(a, self.device) for a in ops6))
+        # one pull (X3, za, zb)
+        packed = packed.cpu().numpy().astype(np.float64)[: len(X)]
+        return self._retri_post(packed, ok, X)
+
+    def _refine_prep(self, R_cw, t_cw, pid, uv, tvalid, X):
+        """Host-side prep for the frozen-pose point polish: the padded
+        `ops/ba.BAProblem` on the device.  Returns ``(prob, m)``, or
+        ``None`` when there are fewer than 30 observations (degenerate map
+        segment: nothing worth polishing).  The host twin of the problem
+        built inside `_finalize_refine_core`."""
+        n_kf, T = pid.shape
+        n_pts = len(X)
+        ok = tvalid & (pid >= 0) & (pid < n_pts)
+        kk, ss = np.nonzero(ok)
+        m = len(kk)
+        if m < 30:
+            return None
+        F = _next_pow2(n_kf, lo=8)
+        P = _next_pow2(n_pts, lo=1024)
+        M = _next_pow2(m, lo=4096)
+        cam_idx = np.zeros(M, np.int32)
+        pidx = np.zeros(M, np.int32)
+        obs_n = np.zeros((M, 2))
+        ovalid = np.zeros(M, bool)
+        cam_idx[:m] = kk
+        pidx[:m] = pid[kk, ss]
+        obs_n[:m] = np_geom.normalize_by_K(self.K, uv[kk, ss])
+        ovalid[:m] = True
+        Xp = np.zeros((P, 3))
+        Xp[:n_pts] = X
+        pvalid = np.zeros(P, bool)
+        pvalid[:n_pts] = True
+        R_wc = np.swapaxes(R_cw, -1, -2)
+        t_wc = -np.einsum("fij,fj->fi", R_wc, t_cw)
+        R_wc = np.concatenate([R_wc, np.tile(np.eye(3), (F - n_kf, 1, 1))])
+        t_wc = np.concatenate([t_wc, np.zeros((F - n_kf, 3))])
+        put = lambda a, dt=None: to_device(np.asarray(a, dt), self.device)  # noqa: E731
+        prob = ba_ops.BAProblem(
+            R_wc=put(R_wc, np.float32), t_wc=put(t_wc, np.float32),
+            X=put(Xp, np.float32), cam_idx=put(cam_idx), pid_idx=put(pidx),
+            obs=put(obs_n, np.float32), obs_valid=put(ovalid),
+            point_valid=put(pvalid))
+        return prob, m
+
+    def _refine_structure(self, R_cw, t_cw, pid, uv, tvalid, X):
+        """Frozen-pose point polish over the full drained observation set
+        (see finalize for why poses stay fixed)."""
+        prep = self._refine_prep(R_cw, t_cw, pid, uv, tvalid, X)
+        if prep is None:
+            return X
+        prob, m = prep
+        n_kf, n_pts = len(R_cw), len(X)
+        fx = float(self.K[0, 0])
+        Xn, info = ba_ops.refine_points(
+            prob, iters=self.cfg.ba.global_iters,
+            lambda0=self.cfg.ba.lambda0,
+            huber_delta=self.cfg.ba.huber_delta / fx,
+            max_obs_per_point=prob.R_wc.shape[0])
+        Xn = Xn.cpu().numpy().astype(np.float64)[:n_pts]
+        log.info("structure refine: cost %.3e -> %.3e (%d kfs, %d pts, "
+                 "%d obs)", float(info["cost0"]), float(info["cost"]),
+                 n_kf, n_pts, m)
+        return Xn
 
     @property
     def map_xyz(self) -> np.ndarray:

@@ -293,7 +293,9 @@ class SfMSystem:
         return epipolar.sample_priorities(self._gen, H, N, self.device)
 
     def _put(self, a, dtype=f32):
-        return to_device(np.asarray(a), self.device, dtype)
+        # contiguous: a stage's bits must not depend on how a host array
+        # happens to be laid out (a transposed view, a loaded copy)
+        return to_device(np.asarray(a, order="C"), self.device, dtype)
 
     def process(self, frame_idx: int, img_name: str,
                 gray_u8: np.ndarray) -> dict:
@@ -542,7 +544,9 @@ class SfMSystem:
         tri_ok = pack[o + TRI_CAP * 3: o + TRI_CAP * 4] > 0.5
 
         # new pose (world→cam back to cam→world)
-        self.pose_R = R_f.T
+        # poses stay C-ordered: numpy's small products round by layout, and
+        # a checkpoint restores C-ordered arrays
+        self.pose_R = np.ascontiguousarray(R_f.T)
         self.pose_t = -R_f.T @ t_f
 
         # odometry edge (normalized per translation mode, ref py:979-981)
@@ -841,7 +845,8 @@ class SfMSystem:
             w_rot[k] = pcfg.w_rot * e.w_rot
             w_trans[k] = pcfg.w_trans * e.w_trans
             valid[k] = True
-        put = lambda a: to_device(a, self.device)  # noqa: E731
+        put = lambda a: to_device(np.asarray(a, order="C"),  # noqa: E731
+                                  self.device)
         prob = pg_ops.PoseGraphProblem(
             R_cw=put(R_cw), C=put(C), e_i=put(e_i), e_j=put(e_j),
             R_meas=put(R_meas), t_meas=put(t_meas), w_rot=put(w_rot),
@@ -875,7 +880,8 @@ class SfMSystem:
                     pvalid) -> ba_ops.BAProblem:
         """A BA problem from float64 / int host tables (float64 on the
         device, as the JAX twin builds it under x64)."""
-        put = lambda a, dt=f64: to_device(a, self.device, dt)  # noqa: E731
+        put = lambda a, dt=f64: to_device(  # noqa: E731
+            np.asarray(a, order="C"), self.device, dt)
         return ba_ops.BAProblem(
             R_wc=put(R_wc), t_wc=put(t_wc), X=put(X),
             cam_idx=put(cam_idx, torch.int64),
@@ -973,7 +979,7 @@ class SfMSystem:
         t_new = pack[o1:o2].reshape(Fp, 3)
         for k, kf in enumerate(win):
             # world->cam back to cam->world
-            kf.R_cw = R_new[k].T
+            kf.R_cw = np.ascontiguousarray(R_new[k].T)
             kf.t_cw = -R_new[k].T @ t_new[k]
         if cfg.update_points:
             X_new = pack[o2:o3].reshape(P, 3)
@@ -1037,7 +1043,7 @@ class SfMSystem:
         R_new = R_new.cpu().numpy().astype(np.float64)
         t_new = t_new.cpu().numpy().astype(np.float64)
         for k, kf in enumerate(self.kfs):
-            kf.R_cw = R_new[k].T
+            kf.R_cw = np.ascontiguousarray(R_new[k].T)
             kf.t_cw = -R_new[k].T @ t_new[k]
         xyz_new = X_new.cpu().numpy().astype(np.float64)[:n_pts]
         xyz = self.map.xyz()

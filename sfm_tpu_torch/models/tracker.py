@@ -8,6 +8,11 @@ dead slots are reused by masked writes, ids grow monotonically.
 
 The replenish branch (``lax.cond`` in the JAX twin) is a host branch on
 the number of surviving tracks: one host sync per frame.
+
+``step_scenes``/``bootstrap_scenes`` serve S scenes at once (the
+multi-scene runner, parallel/multi_scan): one LK pass over the stacked
+pyramids, one host pull of every scene's survivor count, and one corner
+map over the scenes that replenish.
 """
 
 from __future__ import annotations
@@ -56,20 +61,27 @@ def state_to_numpy(state: TrackerState) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
 
 
-def _replenish(state: TrackerState, img, cfg: KLTConfig) -> TrackerState:
-    """Detect new corners and write them into free slots (ref py:462-468)."""
-    T = state.pos.shape[0]
-    dev = state.pos.device
+def _detect(img, pos, valid, cfg: KLTConfig):
+    """New corners outside the live tracks' cells: (xy, valid), for one
+    (H,W) image or an (S,H,W) stack (one kernel launch)."""
     xy, _, new_valid = features.detect_corners(
         img,
-        state.pos,
-        state.valid,
-        max_new=T,
+        pos,
+        valid,
+        max_new=pos.shape[-2],
         cell=max(int(cfg.min_distance), 2),
         quality=cfg.quality,
         block_radius=max(int(cfg.block_size) // 2, 1),
-        device=dev,
+        device=pos.device,
     )
+    return xy, new_valid
+
+
+def _fill_free(state: TrackerState, xy, new_valid) -> TrackerState:
+    """Write new corners into the free slots of the table (the replenish
+    of ref py:462-468)."""
+    T = state.pos.shape[0]
+    dev = state.pos.device
     iota = torch.arange(T, dtype=torch.int32, device=dev)
     free = ~state.valid
     rank = torch.cumsum(free.to(torch.int32), dim=0) - 1
@@ -102,8 +114,7 @@ def _replenish(state: TrackerState, img, cfg: KLTConfig) -> TrackerState:
 def bootstrap(img, cfg: KLTConfig, device="cuda") -> TrackerState:
     """Initial detection on the first frame (ref py:419-424 reset)."""
     dev = resolve(device)
-    img = to_device(img, dev, torch.float32)
-    return _replenish(init_state(cfg.max_tracks, dev), img, cfg)
+    return bootstrap_scenes(to_device(img, dev, torch.float32)[None], cfg)[0]
 
 
 def step(pyr_prev, pyr_cur, state: TrackerState, cfg: KLTConfig,
@@ -112,29 +123,57 @@ def step(pyr_prev, pyr_cur, state: TrackerState, cfg: KLTConfig,
 
     Returns (new_state, prev_pos (T,2), matched (T,) bool) where
     ``matched`` marks tracks alive in BOTH frames (the correspondence set
-    handed to two-view geometry, ref py:426-460 step return).
+    handed to two-view geometry, ref py:426-460 step return).  The
+    one-scene case of ``step_scenes``.
     """
     dev = resolve(device)
+    one = [tuple(to_device(p, dev)[None] for p in pyr)
+           for pyr in (pyr_prev, pyr_cur)]
+    return step_scenes(*one, [state], cfg)[0]
+
+
+def bootstrap_scenes(imgs, cfg: KLTConfig) -> list[TrackerState]:
+    """``bootstrap`` of S scenes' first frames (S,H,W) f32, with one corner
+    map for all of them."""
+    S = imgs.shape[0]
+    free = init_state(cfg.max_tracks, imgs.device)
+    xy, new_valid = _detect(imgs, free.pos.expand(S, -1, -1),
+                            free.valid.expand(S, -1), cfg)
+    return [_fill_free(free, a, v) for a, v in zip(xy, new_valid)]
+
+
+def step_scenes(pyr_prev, pyr_cur, states: list[TrackerState],
+                cfg: KLTConfig):
+    """``step`` for S scenes at once (counterpart of the JAX twin's
+    ``step`` under ``jax.vmap``).  ``pyr_prev``/``pyr_cur``: per level the
+    (S,H_L,W_L) stack of the scenes' pyramids.
+
+    One fwd+bwd LK pass over the stack (arm (a): one K3 launch per level
+    and direction for all scenes), ONE host pull of every scene's survivor
+    count, and one corner map (one K1 launch) over the scenes that
+    replenish.  Under vmap the JAX twin's replenish ``lax.cond`` is a
+    select; a scene's replenish reads only that scene, so replenishing
+    only the scenes below ``min_tracks`` gives the same tables.
+    Returns one (state, prev_pos, matched) per scene.  (The host branch
+    on the counts is the frame's replenish sync.)"""
+    pos = torch.stack([s.pos for s in states])
+    valid = torch.stack([s.valid for s in states])
     new_pos, ok = klt.lk_track_fb(
-        pyr_prev,
-        pyr_cur,
-        state.pos,
-        state.valid,
-        levels=cfg.pyr_levels,
-        iters=cfg.iters,
-        radius=cfg.win_radius,
-        fb_thresh=cfg.fb_thresh,
-        device=dev,
-    )
-    matched = state.valid & ok
-    surv = TrackerState(
-        pos=torch.where(matched[:, None], new_pos, state.pos),
-        valid=matched,
-        ids=torch.where(matched, state.ids, -1),
-        next_id=state.next_id,
-    )
-    # host branch (the frame's replenish sync)
-    if int(torch.sum(matched)) < cfg.min_tracks:
-        surv = _replenish(surv, to_device(pyr_cur[0], dev, torch.float32),
-                          cfg)
-    return surv, state.pos, matched
+        pyr_prev, pyr_cur, pos, valid, levels=cfg.pyr_levels,
+        iters=cfg.iters, radius=cfg.win_radius, fb_thresh=cfg.fb_thresh,
+        device=pos.device)
+    matched = valid & ok
+    surv = [TrackerState(pos=torch.where(m[:, None], p, s.pos), valid=m,
+                         ids=torch.where(m, s.ids, -1), next_id=s.next_id)
+            for s, p, m in zip(states, new_pos, matched)]
+    counts = torch.sum(matched, dim=-1).tolist()  # the frame's one pull
+    need = [k for k, c in enumerate(counts) if c < cfg.min_tracks]
+    if need:
+        sel = torch.tensor(need, device=pos.device)
+        xy, new_valid = _detect(
+            pyr_cur[0].index_select(0, sel).to(torch.float32),
+            torch.stack([surv[k].pos for k in need]),
+            torch.stack([surv[k].valid for k in need]), cfg)
+        for k, a, v in zip(need, xy, new_valid):
+            surv[k] = _fill_free(surv[k], a, v)
+    return [(s, st.pos, m) for s, st, m in zip(surv, states, matched)]

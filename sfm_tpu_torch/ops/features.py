@@ -36,20 +36,34 @@ def detect_corners(img, exclude_xy, exclude_valid, max_new: int, cell: int,
     """Top-``max_new`` corners outside occupied grid cells.
 
     Args:
-      img: (H,W) f32 grayscale.
-      exclude_xy: (T,2) existing track positions (x,y).
-      exclude_valid: (T,) bool.
+      img: (H,W) f32 grayscale, or (S,H,W) for S scenes.
+      exclude_xy: (T,2) existing track positions (x,y); (S,T,2) for S scenes.
+      exclude_valid: (T,) bool; (S,T) for S scenes.
       max_new: number of corners to return (padded with valid=False).
       cell: min-distance grid cell size in px.
     Returns:
-      xy (max_new,2) f32, score (max_new,), valid (max_new,) bool.
+      xy (max_new,2) f32, score (max_new,), valid (max_new,) bool; with a
+      leading S axis for S scenes.
     """
     dev = resolve(device)
     img = to_device(img, dev)
     exclude_xy = to_device(exclude_xy, dev)
     exclude_valid = to_device(exclude_valid, dev)
-    H, W = img.shape
     score = shi_tomasi_kernel.shi_tomasi_score(img, block_radius)
+    if img.dim() == 3:  # one map for all scenes, each ranked on its own
+        outs = [_rank_corners(sc, ex, ev, max_new, cell, quality, border)
+                for sc, ex, ev in zip(score, exclude_xy, exclude_valid)]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return _rank_corners(score, exclude_xy, exclude_valid, max_new, cell,
+                         quality, border)
+
+
+def _rank_corners(score, exclude_xy, exclude_valid, max_new: int, cell: int,
+                  quality: float, border: int):
+    """The best ``max_new`` corners of one (H,W) response map (see
+    ``detect_corners``)."""
+    dev = score.device
+    H, W = score.shape
     # border + quality gating (ref cpp:271-284)
     yy = torch.arange(H, device=dev)[:, None]
     xx = torch.arange(W, device=dev)[None, :]

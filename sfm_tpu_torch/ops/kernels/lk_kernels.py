@@ -17,6 +17,12 @@ plain version only for CPU tensors.
 
 Layout: tracks lead — blocks are (T, WIN, WIN), patches (T, P, P).  (The
 JAX twin keeps tracks on the last axis for the TPU's lanes.)
+
+Scene axis: K3 (``lk_level_fused``, and its plain version) also takes a
+stack of scenes, images (S,H,W) with positions and flows (S,T,2), the axis
+the JAX twin gets under ``jax.vmap`` (sfm_tpu/parallel/multi_scan.py).
+The kernel serves the whole stack in one launch; the plain version runs
+scene by scene.
 """
 
 from __future__ import annotations
@@ -79,10 +85,11 @@ def lk_gather_pair_plain(img0, starts0, win0: int, img1, starts1, win1: int):
             _gather_windows(img1, starts1, win1))
 
 
-def _check_image_pair(img0, img1, win: int, name: str):
+def _check_image_pair(img0, img1, win: int, name: str, dims=(2,)):
     for im_ in (img0, img1):
-        if im_.dtype != torch.float32 or im_.dim() != 2:
-            raise TypeError(f"{name} takes 2-D float32 images, got "
+        if im_.dtype != torch.float32 or im_.dim() not in dims:
+            raise TypeError(f"{name} takes float32 images of "
+                            f"{' or '.join(map(str, dims))} dimensions, got "
                             f"{tuple(im_.shape)} {im_.dtype}")
         if not im_.is_contiguous():
             raise ValueError(f"{name} needs contiguous images")
@@ -90,7 +97,7 @@ def _check_image_pair(img0, img1, win: int, name: str):
         raise ValueError(f"{name} needs two images of one shape on one "
                          f"device, got {tuple(img0.shape)} on {img0.device} "
                          f"and {tuple(img1.shape)} on {img1.device}")
-    H, W = img1.shape
+    H, W = img1.shape[-2:]
     if H < win or W < win:
         raise ValueError(f"{name}: image {H}x{W} smaller than the "
                          f"{win}-px window")
@@ -247,7 +254,12 @@ def lk_level_plain(img0, img1, p0_l, v, iters: int, radius: int,
     """``iters`` LK updates at one pyramid level for all tracks, in plain
     PyTorch (port of the XLA path of sfm_tpu/ops/klt._lk_level).
     ``gather(img, int starts, win)`` fetches the windows (the SFM_TPU_LK_FUSED
-    =0 arm of ops/klt passes the K5 wrapper)."""
+    =0 arm of ops/klt passes the K5 wrapper).  With a scene axis (images
+    (S,H,W), p0_l and v (S,T,2)) it runs scene by scene."""
+    if img1.dim() == 3:
+        return torch.stack([
+            lk_level_plain(a, b, p, w, iters, radius, min_det, margin, gather)
+            for a, b, p, w in zip(img0, img1, p0_l, v)])
     P = 2 * radius + 1
     # template: fixed patch from img0 (no search margin)
     blk0, a0 = _load_blocks(img0, p0_l - radius, P, 0, gather)
@@ -297,25 +309,29 @@ def _lk_level_fused_cuda(img0, img1, p0_l, v, iters, radius, min_det,
     global level_launches
     P = 2 * radius + 1
     WIN = P + 2 * margin + 3
-    _check_image_pair(img0, img1, WIN, "lk_level_fused")
+    _check_image_pair(img0, img1, WIN, "lk_level_fused", dims=(2, 3))
     if margin <= 0:
         raise ValueError("lk_level_fused needs a positive search margin")
-    T = p0_l.shape[0]
+    # a single pair is the one-scene case of the stack
+    lead = tuple(img0.shape[:-2])
+    T = p0_l.shape[-2]
     for a in (p0_l, v):
-        if (a.dtype != torch.float32 or a.shape != (T, 2)
+        if (a.dtype != torch.float32 or a.shape != (*lead, T, 2)
                 or a.device != img0.device):
-            raise TypeError("lk_level_fused takes float32 (T,2) positions "
-                            "and flows on the images' device")
+            raise TypeError("lk_level_fused takes float32 positions and "
+                            "flows (T,2), or (S,T,2) for images (S,H,W), "
+                            "on the images' device")
     p0_l = p0_l.contiguous()
     v = v.contiguous()
     lib = build.load()
-    H, W = img0.shape
-    out = torch.empty((T, 2), dtype=torch.float32, device=img0.device)
+    H, W = img0.shape[-2:]
+    S = img0.shape[0] if lead else 1
+    out = torch.empty_like(p0_l)
     with torch.cuda.device(img0.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.sfm_lk_level_fused(
             img0.data_ptr(), img1.data_ptr(), H, W, p0_l.data_ptr(),
-            v.data_ptr(), T, int(radius), int(margin), int(iters),
+            v.data_ptr(), S * T, T, int(radius), int(margin), int(iters),
             float(min_det), out.data_ptr(), stream)
     build.check_launch(code, "lk_level_fused")
     level_launches += 1
@@ -325,7 +341,8 @@ def _lk_level_fused_cuda(img0, img1, p0_l, v, iters, radius, min_det,
 def lk_level_fused(img0, img1, p0_l, v, iters: int, radius: int,
                    min_det: float, margin: int = MARGIN):
     """K3. CUDA tensors -> the fused kernel (gather + template + all
-    iterations in one launch), CPU tensors -> ``lk_level_plain``."""
+    iterations in one launch, for one scene or an (S,H,W) / (S,T,2) stack
+    of scenes), CPU tensors -> ``lk_level_plain``."""
     if img1.is_cuda:
         return _lk_level_fused_cuda(img0, img1, p0_l, v, iters, radius,
                                     min_det, margin)

@@ -28,6 +28,14 @@ time ("0" turns an arm off; both default on):
 The JAX twin's SFM_TPU_PALLAS (which on the card would run no kernel) and
 SFM_TPU_LK_BF16 are not read.  On the CPU every kernel is its plain
 version (ops/kernels/lk_kernels).
+
+Scene axis (the multi-scene runner, parallel/multi_scan): ``lk_track`` and
+``lk_track_fb`` also take scene-stacked pyramids, each level (S,H_L,W_L),
+with points (S,T,2) and masks (S,T).  Arm (a) sends the whole stack to
+ONE launch of K3 per level and direction; arms (b) and (c) run scene by
+scene with the single-scene calls (one K4 launch and two K5 launches per
+scene, level and direction under arm (b)).  Every scene's result is the
+single-scene one, bit for bit.
 """
 
 from __future__ import annotations
@@ -50,17 +58,22 @@ def _lk_level(img0, img1, p0_l, v, iters: int, radius: int, min_det: float,
               margin: int = MARGIN):
     """Run ``iters`` LK updates at one pyramid level for all tracks.
 
-    p0_l: (T,2) template positions at this level; v: (T,2) current flow.
+    p0_l: (T,2) template positions at this level; v: (T,2) current flow
+    (or (S,H,W) images with (S,T,2) positions and flows for S scenes).
     Returns the updated flow v."""
     P = 2 * radius + 1
     WIN = P + 2 * margin + 3
-    H1, W1 = img1.shape
+    H1, W1 = img1.shape[-2:]
     fused_ok = (margin > 0 and H1 >= WIN and W1 >= WIN
                 and _env_on("SFM_TPU_LK_FUSED"))
     if (fused_ok and _env_on("SFM_TPU_LK_FUSED_TMPL")
             and img0.shape == img1.shape):
         return lk_kernels.lk_level_fused(img0, img1, p0_l, v, iters, radius,
                                          min_det, margin)
+    if img1.dim() == 3:  # arms (b) and (c): scene by scene
+        return torch.stack([
+            _lk_level(a, b, p, w, iters, radius, min_det, margin)
+            for a, b, p, w in zip(img0, img1, p0_l, v)])
     if not fused_ok:
         return lk_kernels.lk_level_plain(img0, img1, p0_l, v, iters, radius,
                                          min_det, margin,
@@ -80,6 +93,8 @@ def lk_track(pyr0, pyr1, pts, valid, levels: int, iters: int, radius: int,
     """Track ``pts`` from pyramid ``pyr0`` to ``pyr1`` (finest-first tuples).
 
     Returns (new_pts (T,2), ok (T,) bool). ref: cpp:402-460 coarse-to-fine.
+    Scene-stacked pyramids (levels (S,H_L,W_L)) with (S,T,2) points give
+    (S,T,2) and (S,T); each scene is bounds-tested against its own image.
     """
     dev = resolve(device)
     pyr0 = tuple(to_device(p, dev, torch.float32).contiguous() for p in pyr0)
@@ -94,17 +109,17 @@ def lk_track(pyr0, pyr1, pts, valid, levels: int, iters: int, radius: int,
         if L > 0:
             v = v * 2.0
     new_pts = pts + v
-    H, W = pyr1[0].shape
+    H, W = pyr1[0].shape[-2:]
     b = float(radius)
-    inb = ((new_pts[:, 0] >= b) & (new_pts[:, 0] < W - b)
-           & (new_pts[:, 1] >= b) & (new_pts[:, 1] < H - b))
+    inb = ((new_pts[..., 0] >= b) & (new_pts[..., 0] < W - b)
+           & (new_pts[..., 1] >= b) & (new_pts[..., 1] < H - b))
     return new_pts, valid & inb
 
 
 def lk_track_fb(pyr0, pyr1, pts, valid, levels: int, iters: int, radius: int,
                 fb_thresh: float = 1.0, device="cuda"):
     """Forward-backward LK with fb-error gating (ref: cpp:356-367).
-    Returns (new_pts, ok).
+    Returns (new_pts, ok); scene-stacked inputs as in ``lk_track``.
 
     The backward pass re-tracks from scratch (full pyramid): a forward
     match stuck in a false minimum would trivially pass a check that is

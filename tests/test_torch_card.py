@@ -132,3 +132,43 @@ def test_torch_bundle_adjust_aos_on_card_matches_cpu():
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-9)
     again = run("cuda")
     assert all(torch.equal(a, b) for a, b in zip(again, (Rg, tg, Xg, hg)))
+
+
+@pytest.mark.gpu
+def test_torch_scene_batched_kernels_match_single_launches(rng):
+    """K1 and K3 with a scene axis (S=3) on the card: one launch over the
+    stack gives the bits of one launch per scene (NaN flows included, as
+    bit patterns), and each scene's result meets its plain version's rule
+    (K1 bit for bit; K3 within 1e-4 px on tracks away from the border, as
+    in test_torch_kernels_match_plain_on_card).  ``chip_smoke.py`` runs
+    the same comparison at the multi-scene runner's shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    S = 3
+    a = torch.stack([torch.as_tensor(make_textured(rng, 120, 160),
+                                     device=dev) for _ in range(S)])
+    b = torch.stack([torch.roll(x, (2, -s), (0, 1))
+                     for s, x in enumerate(a)]).contiguous()
+    for r in (2, 3):
+        out = shi_tomasi_kernel.shi_tomasi_score(a, r)
+        for s in range(S):
+            assert torch.equal(out[s],
+                               shi_tomasi_kernel.shi_tomasi_score(a[s], r))
+            assert torch.equal(
+                out[s], shi_tomasi_kernel.shi_tomasi_score_plain(a[s], r))
+    pts = torch.as_tensor(rng.uniform(30, [130, 90], (S, 100, 2)),
+                          dtype=torch.float32, device=dev)
+    pts[1, :5] = float("nan")
+    v0 = torch.zeros_like(pts)
+    n = lk_kernels.level_launches
+    out = lk_kernels.lk_level_fused(a, b, pts, v0, 8, 6, 1e-4)
+    assert lk_kernels.level_launches == n + 1
+    for s in range(S):
+        one = lk_kernels.lk_level_fused(a[s], b[s], pts[s], v0[s], 8, 6,
+                                        1e-4)
+        assert torch.equal(out[s].view(torch.int32), one.view(torch.int32))
+        ref = lk_kernels.lk_level_plain(a[s], b[s], pts[s], v0[s], 8, 6,
+                                        1e-4)
+        ok = torch.isfinite(pts[s]).all(-1)
+        assert float((out[s] - ref)[ok].abs().max()) <= 1e-4, s

@@ -598,3 +598,107 @@ def test_torch_default_device_raises_without_cuda(rng, entry):
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+# ---------------------------------------------------------------------------
+# the scene axis (the multi-scene runner): plain versions and the tracker
+# with S stacked scenes against S single-scene calls, bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _scenes(rng, S=3, H=120, W=160):
+    """S textured scenes, each with a shifted second image."""
+    a = np.stack([make_textured(rng, H, W) for _ in range(S)])
+    b = np.stack([np.roll(x, (2 - s, s - 3), axis=(0, 1))
+                  for s, x in enumerate(a)])
+    return t32(a), t32(b)
+
+
+def test_torch_scene_axis_plain_versions_equal_per_scene(rng):
+    """The plain versions of K1 and K3 and ``detect_corners`` with a scene
+    axis (S=3) give exactly the per-scene results (tolerance 0: they run
+    scene by scene, and ``detect_corners`` ranks each scene alone)."""
+    a, b = _scenes(rng)
+    for r in (2, 3):
+        out = shi_tomasi_kernel.shi_tomasi_score(a, r)
+        assert out.shape == a.shape
+        for s in range(3):
+            assert torch.equal(out[s],
+                               shi_tomasi_kernel.shi_tomasi_score(a[s], r))
+    pts = t32(rng.uniform(0, [159, 119], (3, 90, 2)))
+    v0 = t32(rng.uniform(-2, 2, (3, 90, 2)))
+    out = lk_kernels.lk_level_fused(a, b, pts, v0, 8, 6, 1e-4)
+    for s in range(3):
+        assert torch.equal(out[s], lk_kernels.lk_level_fused(
+            a[s], b[s], pts[s], v0[s], 8, 6, 1e-4))
+    ex = t32(rng.uniform(0, [159, 119], (3, 40, 2)))
+    ev = torch.as_tensor(rng.random((3, 40)) < 0.5)
+    xy, sc, ok = features.detect_corners(a, ex, ev, max_new=64, cell=8,
+                                         device="cpu")
+    assert xy.shape == (3, 64, 2) and ok.shape == (3, 64)
+    for s in range(3):
+        xs, ss, oks = features.detect_corners(a[s], ex[s], ev[s], max_new=64,
+                                              cell=8, device="cpu")
+        assert torch.equal(xy[s], xs) and torch.equal(sc[s], ss)
+        assert torch.equal(ok[s], oks)
+
+
+@pytest.mark.parametrize("arm", ["fused", "tmpl", "unfused"])
+def test_torch_lk_track_fb_scene_axis_equals_per_scene(rng, monkeypatch,
+                                                        arm):
+    """``klt.lk_track_fb`` on scene-stacked 3-level pyramids (S=3, 90
+    tracks each, some within a window of the border, a few dead) under
+    each arm: flows and masks exactly those of the per-scene calls
+    (tolerance 0; arm (a) stacks the scenes into one K3 call, arms (b)
+    and (c) run scene by scene)."""
+    _set_arm(monkeypatch, arm)
+    a, b = _scenes(rng)
+    pyr0 = tuple(torch.stack(x) for x in zip(
+        *(im.build_pyramid(x, 3) for x in a)))
+    pyr1 = tuple(torch.stack(x) for x in zip(
+        *(im.build_pyramid(x, 3) for x in b)))
+    pts = t32(rng.uniform(0, [159, 119], (3, 90, 2)))
+    valid = torch.as_tensor(rng.random((3, 90)) < 0.9)
+    new, ok = klt.lk_track_fb(pyr0, pyr1, pts, valid, levels=3, iters=8,
+                              radius=4, device="cpu")
+    assert new.shape == (3, 90, 2) and ok.shape == (3, 90)
+    assert ok.float().mean() > 0.5
+    for s in range(3):
+        ns, oks = klt.lk_track_fb(tuple(p[s] for p in pyr0),
+                                  tuple(p[s] for p in pyr1), pts[s],
+                                  valid[s], levels=3, iters=8, radius=4,
+                                  device="cpu")
+        assert torch.equal(new[s], ns) and torch.equal(ok[s], oks)
+
+
+def test_torch_tracker_step_scenes_equals_per_scene(rng):
+    """``tracker.bootstrap_scenes`` and ``tracker.step_scenes`` (S=3) give
+    each scene's single-scene tables bit for bit, with ``min_tracks`` set
+    so that scenes 0 and 2 replenish and scene 1 does not (the batched
+    step replenishes only the scenes below it)."""
+    a, b = _scenes(rng)
+    cfg = KLTConfig(max_tracks=160, min_tracks=100, pyr_levels=3,
+                    win_radius=4, iters=8, min_distance=8)
+    states = tracker.bootstrap_scenes(a, cfg)
+    for s in range(3):
+        ref = tracker.bootstrap(a[s], cfg, device="cpu")
+        assert all(torch.equal(x, y) for x, y in zip(states[s], ref))
+    pyr0 = tuple(torch.stack(x) for x in zip(
+        *(im.build_pyramid(x, 3) for x in a)))
+    pyr1 = tuple(torch.stack(x) for x in zip(
+        *(im.build_pyramid(x, 3) for x in b)))
+    # scene 1 keeps its 160 tracks alive, the others lose 100 of them
+    for s in (0, 2):
+        states[s] = states[s]._replace(
+            valid=states[s].valid & (torch.arange(160) >= 100))
+    out = tracker.step_scenes(pyr0, pyr1, states, cfg)
+    n_alive = []
+    for s in range(3):
+        ref = tracker.step(tuple(p[s] for p in pyr0),
+                           tuple(p[s] for p in pyr1), states[s], cfg,
+                           device="cpu")
+        (st, prev, m), (st_r, prev_r, m_r) = out[s], ref
+        assert all(torch.equal(x, y) for x, y in zip(st, st_r))
+        assert torch.equal(prev, prev_r) and torch.equal(m, m_r)
+        n_alive.append((int(m.sum()), int(st.next_id)))
+    assert n_alive[1][1] == 160 and n_alive[0][1] > 160  # 0 replenished
