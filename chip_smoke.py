@@ -29,7 +29,10 @@ Phases, one JSON line each on standard output:
             measured run; the global BA on the AoS path), with its stage
             timers;
   cli       ``python -m sfm_tpu_torch --synthetic 8`` in a subprocess, with
-            ``--pipeline host`` (the default) and ``--pipeline scan``;
+            ``--pipeline host`` (the default), ``--pipeline scan``, and
+            ``--pipeline scan --export-geometry both --debug-nans`` (every
+            op checked for NaN/Inf; ``--visuals`` too where matplotlib
+            imports);
   orb       the ring through ScanSfM with the ORB loop flavor;
   orb_host  the ring through SfMSystem with the ORB loop flavor;
   multiscene  four 47-frame 640x480 rings (the ring above and three more
@@ -37,7 +40,15 @@ Phases, one JSON line each on standard output:
             through parallel.multi_scan.run_scenes_scan at the bench
             configuration (loop closure verified on the host), one K3
             launch per level and direction for all four scenes; then the
-            first ring alone through ScanSfM, which scene 0 must match.
+            first ring alone through ScanSfM, which scene 0 must match;
+  mesh      the dense stereo mesh (models.mesh.export_stereo_grid_mesh at
+            the StereoMeshConfig defaults: 128 disparities, block 7, SGM)
+            on a rendered 640x480 pair of the ring's texture 3 degrees
+            apart with GT poses, held to the cylinder (its wall time, the
+            device time, kernel launches and peak memory of one
+            _disparity_sad call, and that call on the card against the
+            same call on the CPU); and the sparse Delaunay mesh of the
+            pipeline phase's map in its keyframe 0.
 
 The kernels phase also holds the scene-batched launches of K1 and K3 (four
 rendered frames of the ring, S = 4, the multi-scene runner's level-0
@@ -923,7 +934,9 @@ def read_launches() -> dict:
             "lk_gather": lk_kernels.gather1_launches}
 
 
-def phase_pipeline(dev) -> tuple[dict, dict]:
+def phase_pipeline(dev) -> tuple[dict, dict, tuple]:
+    """The measured run's line and launch counts, and (K, keyframe 0, map
+    points) of its ScanSfM for the mesh phase's sparse mesh."""
     from sfm_tpu_torch.models.scan_pipeline import carry_tensors
     from sfm_tpu_torch.utils import artifacts
 
@@ -981,7 +994,7 @@ def phase_pipeline(dev) -> tuple[dict, dict]:
         "launches": counts, "checks": checks,
         "ok": all(checks.values()),
     }
-    return line, counts
+    return line, counts, (ds.K, s.kfs[0], s.map_xyz)
 
 
 # ---------------------------------------------------------------------------
@@ -1344,21 +1357,33 @@ def phase_host(dev) -> tuple[dict, dict]:
 
 def phase_cli(dev) -> dict:
     """``python -m sfm_tpu_torch --synthetic 8`` in a subprocess, with the
-    default ``--pipeline host`` and with ``--pipeline scan``: exit code 0,
-    the three artifacts and the ``=== Summary ===`` block."""
+    default ``--pipeline host``, with ``--pipeline scan``, and with
+    ``--pipeline scan --export-geometry both --debug-nans`` (plus
+    ``--visuals`` where matplotlib imports; the renders are host work):
+    exit code 0, the three artifacts and the ``=== Summary ===`` block, and
+    for the third run the sparse-mesh PLY."""
     import re
 
+    try:
+        import matplotlib  # noqa: F401
+        visuals = True
+    except ImportError:
+        visuals = False
     repo = Path(__file__).resolve().parent
+    geom = ["--pipeline", "scan", "--export-geometry", "both",
+            "--debug-nans"] + (["--visuals"] if visuals else [])
     runs = {}
     ok = True
     with tempfile.TemporaryDirectory(prefix="sfm_cli_") as tmp:
-        for pipe in ("host", "scan"):
-            out = Path(tmp) / pipe
+        for name, flags in (("host", ["--pipeline", "host"]),
+                            ("scan", ["--pipeline", "scan"]),
+                            ("scan_both_debug_nans", geom)):
+            out = Path(tmp) / name
             t0 = time.perf_counter()
             res = subprocess.run(
                 [sys.executable, "-m", "sfm_tpu_torch", "--synthetic", "8",
-                 "--out", str(out), "--pipeline", pipe, "--log", "warning"],
-                cwd=repo, capture_output=True, text=True, timeout=600)
+                 "--out", str(out), "--log", "warning", *flags],
+                cwd=repo, capture_output=True, text=True, timeout=900)
             lines = res.stdout.splitlines()
             summary = (lines[lines.index("=== Summary ==="):]
                        if "=== Summary ===" in lines else [])
@@ -1367,6 +1392,8 @@ def phase_cli(dev) -> dict:
                     r"frames/s\)", r"Outputs: .+")
             files = ["keyframes_camera_centers.csv", "posegraph_edges.csv",
                      "templeRing_sparse_points.ply"]
+            if name == "scan_both_debug_nans":
+                files.append("templeRing_mesh_sparse_kf0.ply")
             checks = {
                 "rc": res.returncode == 0,
                 "artifacts": all((out / f).exists() for f in files),
@@ -1374,12 +1401,15 @@ def phase_cli(dev) -> dict:
                     re.fullmatch(p, ln) for p, ln in zip(pats, summary)),
             }
             ok &= all(checks.values())
-            runs[pipe] = {"rc": res.returncode,
+            runs[name] = {"flags": flags, "rc": res.returncode,
                           "wall_s": time.perf_counter() - t0,
                           "summary": summary, "checks": checks,
+                          "files": sorted(p.name for p in out.glob("*.*"))
+                          if out.exists() else [],
                           "stderr_tail": res.stderr[-600:]
                           if res.returncode else ""}
-    return {"phase": "cli", "frames": 8, "runs": runs, "ok": ok}
+    return {"phase": "cli", "frames": 8, "visuals": visuals, "runs": runs,
+            "ok": ok}
 
 
 def phase_orb(dev) -> tuple[dict, dict]:
@@ -1565,6 +1595,151 @@ def phase_multiscene(dev) -> tuple[dict, dict]:
     return line, counts
 
 
+# ---------------------------------------------------------------------------
+# phase: mesh (dense stereo on the card, sparse Delaunay on the host)
+# ---------------------------------------------------------------------------
+
+STEREO_STEP_DEG = 3.0  # angle between the two cameras of the stereo pair
+
+
+def disparity_shares(disp_a, ok_a, disp_b, ok_b) -> dict:
+    """The bars two disparity maps are held to: lr_ok equal on >= 99 % of
+    the pixels, the integer disparity equal (the same rounding, or the
+    same value to 1e-3 px) on >= 99 % of the pixels both keep,
+    |delta disp| <= 0.05 px at the 99th percentile."""
+    both = ok_a & ok_b
+    same = (np.rint(disp_a) == np.rint(disp_b)) | (
+        np.abs(disp_a - disp_b) <= 1e-3)
+    out = {"lr_ok_equal": float((ok_a == ok_b).mean()),
+           "int_equal": float(same[both].mean()),
+           "p99_abs_diff_px": float(np.percentile(
+               np.abs(disp_a - disp_b)[both], 99))}
+    out["ok"] = (out["lr_ok_equal"] >= 0.99 and out["int_equal"] >= 0.99
+                 and out["p99_abs_diff_px"] <= 0.05)
+    return out
+
+
+def phase_mesh(dev, sparse_inputs) -> dict:
+    """The dense stereo mesh at full width on the card: two 640x480 frames
+    of the ring's camera circle (fx 1520, the ring's texture)
+    ``STEREO_STEP_DEG`` apart, GT poses, ``export_stereo_grid_mesh`` at
+    the ``StereoMeshConfig`` defaults; vertices held to the cylinder
+    (median |r - 0.10| < 0.02, >= 50 % within 0.02).  The nearest and
+    farthest visible cylinder depths give the expected disparity range,
+    which must lie inside the 128 disparities.  ``_disparity_sad`` alone on
+    the rectified pair: device ms (CUDA events), kernel launches of one
+    call (torch.profiler), peak memory, and the same call on the CPU held
+    to ``disparity_shares``.  Then the sparse mesh of the pipeline phase's
+    map in its keyframe 0 at the ``SparseMeshConfig`` defaults."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sfm_tpu_torch.config import SparseMeshConfig, StereoMeshConfig
+    from sfm_tpu_torch.models import mesh
+    from sfm_tpu_torch.models.mapstate import Keyframe
+    from sfm_tpu_torch.utils.dataset import TempleRing
+    from sfm_tpu_torch.utils.synthetic import generate_dataset
+
+    cfg = StereoMeshConfig()
+    # frame i of an n-frame spec sits at arc_deg * i / n
+    spec = dataclasses.replace(ring_spec(), n_frames=2,
+                               arc_deg=2 * STEREO_STEP_DEG)
+    with tempfile.TemporaryDirectory(prefix="sfm_mesh_") as tmp:
+        generate_dataset(Path(tmp), spec, name_prefix="templeR")
+        ds = TempleRing.from_dir(Path(tmp))
+        g0, g1 = ds.load_gray(0), ds.load_gray(1)
+    kfs = [Keyframe(kf_id=i, frame_idx=i, img_name=r.img, R_cw=r.pose_cw[0],
+                    t_cw=r.pose_cw[1], ids=np.zeros(1, np.int32),
+                    uv=np.zeros((1, 2)), valid=np.zeros(1, bool))
+           for i, r in enumerate(ds.records)]
+    baseline = float(np.linalg.norm(kfs[0].center - kfs[1].center))
+    z_near = spec.ring_radius - spec.cylinder_radius
+    z_far = float(np.sqrt(spec.ring_radius ** 2 - spec.cylinder_radius ** 2))
+    d_expect = [spec.fx * baseline / z_far, spec.fx * baseline / z_near]
+
+    def export():
+        return mesh.export_stereo_grid_mesh(ds.K, kfs[0], kfs[1], g0, g1,
+                                            cfg, device=dev)
+
+    export()  # warm-up: first calls of every op at these shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    verts, faces = export()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_export = torch.cuda.max_memory_allocated(dev)
+    rad_err = np.abs(np.hypot(verts[:, 0], verts[:, 1])
+                     - spec.cylinder_radius)
+
+    # _disparity_sad alone, on the pair export() rectified
+    rect1, rect2, _, _ = mesh.rectified_pair(ds.K, kfs[0], kfs[1], g0, g1,
+                                             dev)
+    num_disp = int(np.ceil(cfg.num_disparities / 16.0) * 16)
+    block_r = max(int(cfg.block_size) // 2, 1)
+
+    def sad(a, b):
+        return mesh._disparity_sad(a, b, num_disp, block_r, sgm=cfg.sgm)
+
+    ms = time_ms(lambda: sad(rect1, rect2), n=5, warm=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    disp, ok = sad(rect1, rect2)
+    torch.cuda.synchronize()
+    peak_sad = torch.cuda.max_memory_allocated(dev) - base_mem
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sad(rect1, rect2)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == cuda)
+    t1 = time.perf_counter()
+    disp_cpu, ok_cpu = sad(rect1.cpu(), rect2.cpu())
+    cpu_s = time.perf_counter() - t1
+    disp, ok = disp.cpu().numpy(), ok.cpu().numpy()
+    shares = disparity_shares(disp, ok, disp_cpu.numpy(), ok_cpu.numpy())
+    kept = disp[ok & (disp >= cfg.disp_min)]
+
+    K_s, kf0, map_xyz = sparse_inputs
+    scfg = SparseMeshConfig()
+    sv, sf = mesh.build_sparse_mesh(
+        K_s, kf0, map_xyz, max_points=scfg.max_points, grid_px=scfg.grid_px,
+        max_edge_px=scfg.max_edge_px)
+
+    checks = {
+        "disparities_inside": d_expect[1] < num_disp,
+        "stereo_faces": len(faces) > 200 and len(verts) > 300
+        and int(faces.max()) < len(verts),
+        "finite": bool(np.isfinite(verts).all() and np.isfinite(disp).all()),
+        "cylinder_median": float(np.median(rad_err)) < 0.02,
+        "cylinder_within": float(np.mean(rad_err < 0.02)) >= 0.5,
+        "card_vs_cpu": shares["ok"],
+        "sparse_faces": len(sf) > 0 and int(sf.max()) < len(sv)
+        and int(sf.min()) >= 0,
+    }
+    return {
+        "phase": "mesh", "size": [spec.height, spec.width], "fx": spec.fx,
+        "step_deg": STEREO_STEP_DEG, "baseline": baseline,
+        "num_disp": num_disp, "block": 2 * block_r + 1, "sgm": cfg.sgm,
+        "disparity_expected_px": d_expect,
+        "disparity_kept_px_p1_p50_p99": [
+            float(v) for v in np.percentile(kept, [1, 50, 99])]
+        if kept.size else [],
+        "vertices": int(len(verts)), "faces": int(len(faces)),
+        "median_radius_err": float(np.median(rad_err)),
+        "within_0.02": float(np.mean(rad_err < 0.02)),
+        "export_wall_s": wall_s, "export_peak_bytes": int(peak_export),
+        "disparity_ms": ms, "disparity_launches": int(launches),
+        "disparity_peak_bytes": int(peak_sad),
+        "disparity_cpu_s": cpu_s, "card_vs_cpu": shares,
+        "sparse": {"kf": 0, "map_points": int(len(map_xyz)),
+                   "vertices": int(len(sv)), "faces": int(len(sf))},
+        "checks": checks, "ok": all(checks.values()),
+    }
+
+
 def short_ring_spec(n: int):
     """The first ``n`` cameras of the ring (the angular step is kept)."""
     import dataclasses
@@ -1625,7 +1800,7 @@ def main() -> int:
         return 0
 
     with torch.no_grad():
-        line, counts = phase_pipeline(dev)
+        line, counts, sparse_inputs = phase_pipeline(dev)
     emit(line)
     if not line["ok"]:
         print("chip_smoke: the pipeline phase failed", file=sys.stderr)
@@ -1649,6 +1824,12 @@ def main() -> int:
             return 1
         if path_counts is not None:
             by_path[name] = path_counts
+    with torch.no_grad():
+        line = phase_mesh(dev, sparse_inputs)
+    emit(line)
+    if not line["ok"]:
+        print("chip_smoke: the mesh phase failed", file=sys.stderr)
+        return 1
     if args.profile:
         with torch.no_grad():
             emit(phase_profile(dev))

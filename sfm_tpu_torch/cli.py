@@ -8,8 +8,9 @@ sfm_tpu/cli.py (reference: python/src/templering_sfm.py:1344-1599
     python -m sfm_tpu_torch --synthetic 6 --device cpu     (no card)
 
 It runs on the card (``--device cuda``, the default) and on the CPU only
-when asked (``--device cpu``).  The mesh exports, the visuals and
-``--debug-nans`` are not ported yet and raise (see ROADMAP.md).
+when asked (``--device cpu``); the dense stereo matcher of
+``--export-geometry mesh_stereo|both`` runs there too, the sparse mesh and
+``--visuals`` on the host.
 """
 
 from __future__ import annotations
@@ -21,9 +22,7 @@ import sys
 import time
 from pathlib import Path
 
-_NOT_PORTED = ("is not ported to sfm_tpu_torch yet (see ROADMAP.md, "
-               "Queue 1); run it with the JAX package (python -m sfm_tpu)")
-
+import numpy as np
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
@@ -55,8 +54,10 @@ def parse_args(argv=None):
     ap.add_argument("--metrics-jsonl", type=str, default=None,
                     help="write per-frame metrics as JSON lines")
     ap.add_argument("--debug-nans", action="store_true",
-                    help="NaN/Inf checks inside the device stages (not "
-                         "ported yet: raises)")
+                    help="check the output of every op for NaN/Inf: any "
+                         "NaN/Inf produced inside a device stage raises "
+                         "at the generating op (slow; see "
+                         "sfm_tpu_torch/utils/debug.py)")
     ap.add_argument("--pipeline", type=str, default="host",
                     choices=["host", "scan"],
                     help="host = host-driven loop over device stages "
@@ -76,11 +77,14 @@ def main(argv=None) -> int:
     )
     from sfm_tpu_torch.config import ExportGeometry, load_config
     from sfm_tpu_torch.models.system import SfMSystem
+    from sfm_tpu_torch.utils import artifacts, visuals
     from sfm_tpu_torch.utils.dataset import TempleRing, load_K_yaml
     from sfm_tpu_torch.utils.device import resolve
 
     if args.debug_nans:
-        raise NotImplementedError("--debug-nans " + _NOT_PORTED)
+        from sfm_tpu_torch.utils.debug import enable_numeric_checks
+
+        enable_numeric_checks(True)
     device = resolve(args.device)
 
     overrides = {
@@ -105,12 +109,6 @@ def main(argv=None) -> int:
                      ("klt.iters", 16)):
             overrides.setdefault(k, v)
     cfg = load_config(args.config, overrides)
-    if cfg.visuals:
-        raise NotImplementedError("--visuals " + _NOT_PORTED)
-    if cfg.export_geometry in (ExportGeometry.MESH, ExportGeometry.MESH_STEREO,
-                               ExportGeometry.BOTH):
-        raise NotImplementedError(
-            f"--export-geometry {cfg.export_geometry.value} " + _NOT_PORTED)
 
     # dataset selection (ref py:1388-1396 match/case)
     if args.synthetic is not None:
@@ -145,8 +143,11 @@ def main(argv=None) -> int:
         sys_ = SfMSystem(K, cfg, gt_records=ds.records, device=device)
 
     t0 = time.perf_counter()
+    grays = []
     for i in range(n_frames):
         gray = ds.load_gray(i)
+        if cfg.visuals and len(grays) < 16:
+            grays.append(gray)
         sys_.process(i, ds.records[i].img, gray)
         if not use_scan:
             print(
@@ -165,9 +166,61 @@ def main(argv=None) -> int:
                 f"map_points={m.get('map_points', 0)}"
             )
 
+    def _map_xyz():
+        return sys_.map.xyz() if not use_scan else sys_.map_xyz
+
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     info = sys_.export(out, dataset=ds)
+
+    geom = cfg.export_geometry
+    if geom in (ExportGeometry.MESH, ExportGeometry.MESH_STEREO,
+                ExportGeometry.BOTH):
+        from sfm_tpu_torch.models import mesh as mesh_mod
+
+        k = min(cfg.mesh_sparse.kf, len(sys_.kfs) - 1)
+        verts, faces = mesh_mod.build_sparse_mesh(
+            K, sys_.kfs[k], _map_xyz(),
+            max_points=cfg.mesh_sparse.max_points,
+            grid_px=cfg.mesh_sparse.grid_px,
+            max_edge_px=cfg.mesh_sparse.max_edge_px,
+        )
+        if len(faces):
+            artifacts.write_ply_mesh(
+                out / f"templeRing_mesh_sparse_kf{k}.ply", verts, faces
+            )
+        # stereo mesh on the configured keyframe pair (python semantics)
+        i1, i2 = cfg.mesh_stereo.kf_pair
+        if geom in (ExportGeometry.MESH_STEREO, ExportGeometry.BOTH) and (
+            0 <= i1 < len(sys_.kfs) and 0 <= i2 < len(sys_.kfs)
+        ):
+            kf1, kf2 = sys_.kfs[i1], sys_.kfs[i2]
+            g1 = ds.load_gray(kf1.frame_idx)
+            g2 = ds.load_gray(kf2.frame_idx)
+            v2, f2 = mesh_mod.export_stereo_grid_mesh(
+                K, kf1, kf2, g1, g2, cfg.mesh_stereo, device=device
+            )
+            if len(f2):
+                # filename matches the reference's kf{a}_kf{b} pattern
+                # (ref py:1585)
+                artifacts.write_ply_mesh(
+                    out / f"templeRing_mesh_stereo_kf{i1}_kf{i2}.ply", v2, f2
+                )
+
+    if cfg.visuals:
+        visuals.render_input_montage(grays, out / "input_montage.png")
+        visuals.render_sparse_cloud(_map_xyz(), out / "sparse_pointcloud.png")
+        visuals.render_trajectory(
+            np.stack([kf.center for kf in sys_.kfs]),
+            out / "camera_trajectory.png"
+        )
+        if len(sys_.kfs) >= 2:
+            a, b = sys_.kfs[0], sys_.kfs[1]
+            shared = a.valid & b.valid & (a.ids == b.ids)
+            visuals.render_inlier_matches(
+                ds.load_gray(a.frame_idx), ds.load_gray(b.frame_idx),
+                a.uv, b.uv, shared, out / "inlier_matches.png",
+            )
 
     if args.metrics_jsonl:
         with open(args.metrics_jsonl, "w") as f:

@@ -61,7 +61,7 @@ from sfm_tpu_torch.ops import (ba as ba_ops, descriptors, epipolar,
                                triangulate)
 from sfm_tpu_torch.ops.features import top_k_stable
 from sfm_tpu_torch.ops.linalg import nanmedian
-from sfm_tpu_torch.utils import artifacts, np_geom
+from sfm_tpu_torch.utils import artifacts, debug, np_geom
 from sfm_tpu_torch.utils.device import resolve, to_device
 
 log = logging.getLogger("sfm_tpu_torch")
@@ -550,9 +550,10 @@ def _keyframe_branch(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry,
 
     # --- loop-closure candidate scoring (cpp:1827-1831) ----------------
     cand = (karange[:, 0] <= kf_id - cfg.loop.min_kf_gap) & ring.kvalid
-    scores = descriptors.score_bank(ring.desc, cand, desc)
-    best_k = torch.argmax(scores)
-    best_s = scores[best_k]
+    with debug.nan_ok():  # -inf scores the non-candidates (gated below)
+        scores = descriptors.score_bank(ring.desc, cand, desc)
+        best_k = torch.argmax(scores)
+        best_s = scores[best_k]
 
     # --- device-side loop verification (loop.device_verify): the gates
     # (score, spatial consistency, mapped-track count) on the device, the
@@ -573,11 +574,13 @@ def _keyframe_branch(cfg: SystemConfig, p_ba: int, Kf, carry: ScanCarry,
     carry.slot_pid, carry.fo_kf, carry.fo_uv = slot_pid, fo_kf, fo_uv
     carry.X, carry.n_pts = X, n_pts
 
+    with debug.nan_ok():  # best_s is -inf without a candidate
+        best_s_row = torch.where(torch.isfinite(best_s), best_s,
+                                 -torch.ones_like(best_s)).to(f32)
     ykf = torch.cat([
         torch.stack([
             torch.ones((), dtype=f32, device=dev),
-            torch.where(torch.isfinite(best_s), best_s,
-                        -torch.ones_like(best_s)).to(f32),
+            best_s_row,
             best_k.to(f32),
             ba0.to(f32), ba1.to(f32),
             rp.num_inliers.to(f32),
@@ -604,9 +607,11 @@ def _propagated_scale(ring: KeyframeRing, prev_i: int, Xs, pid_ok, R_wc_i,
     good = pid_ok & (Xi_cam[:, 2] > 1e-6) & (den > 1e-10)
     sols = torch.sum(a * b, dim=-1) / torch.where(
         den > 1e-10, den, torch.ones_like(den))
-    s_est = nanmedian(torch.where(good, sols,
-                                  torch.full_like(sols, float("nan"))))
-    s_est = torch.where(torch.isnan(s_est), torch.ones_like(s_est), s_est)
+    with debug.nan_ok():  # NaN marks the unusable ratios
+        s_est = nanmedian(torch.where(good, sols,
+                                      torch.full_like(sols, float("nan"))))
+        s_est = torch.where(torch.isnan(s_est), torch.ones_like(s_est),
+                            s_est)
     one = torch.ones_like(s_est)
     s_map = torch.where((torch.sum(good) >= 5) & (s_est > 1e-6), s_est, one)
     # monocular scale-smoothness prior: adjacent keyframe baselines on a
@@ -616,11 +621,13 @@ def _propagated_scale(ring: KeyframeRing, prev_i: int, Xs, pid_ok, R_wc_i,
     # keyframe baseline.
     b_prev = _norm(ring.t_cw[prev_i] - ring.t_cw[max(prev_i - 1, 0)])
     have_prev = (b_prev > 1e-9) & (prev_i >= 1)
+    with debug.nan_ok():  # +inf: no upper clamp without a previous step
+        s_max = torch.where(have_prev, 3.0 * b_prev,
+                            torch.full_like(b_prev, float("inf")))
     return torch.clamp(
         s_map,
         min=torch.where(have_prev, b_prev / 3.0, torch.zeros_like(b_prev)),
-        max=torch.where(have_prev, 3.0 * b_prev,
-                        torch.full_like(b_prev, float("inf"))),
+        max=s_max,
     )
 
 
@@ -643,7 +650,9 @@ def _loop_gate(cfg: SystemConfig, ring: KeyframeRing, kf_id: int, best_k,
     Cs = ring.t_cw
     step_m = kv_prev[1:] & kv_prev[:-1]
     steps = torch.linalg.vector_norm(Cs[1:] - Cs[:-1], dim=-1)
-    med = torch.nan_to_num(nanmedian(_nan_where(step_m, steps)), nan=1.0)
+    with debug.nan_ok():  # NaN marks the steps outside the ring
+        med = torch.nan_to_num(nanmedian(_nan_where(step_m, steps)),
+                               nan=1.0)
     nv = torch.clamp(torch.sum(kv_prev), min=1)
     ctr = torch.sum(torch.where(kv_prev[:, None], Cs,
                                 torch.zeros_like(Cs)), dim=0) / nv
@@ -653,8 +662,9 @@ def _loop_gate(cfg: SystemConfig, ring: KeyframeRing, kf_id: int, best_k,
     b_cand = _norm(Cs[kf_id] - Cs[best_k])
     b_gate = torch.maximum(5.0 * med, 0.25 * extent)
     n_mapped_old = torch.sum(ring.tvalid[best_k] & (ring.pid[best_k] >= 0))
-    return (torch.isfinite(best_s) & (best_s > lcfg.score_thresh)
-            & (b_cand <= b_gate) & (n_mapped_old >= 30))
+    with debug.nan_ok():  # best_s is -inf without a candidate
+        score_ok = torch.isfinite(best_s) & (best_s > lcfg.score_thresh)
+    return score_ok & (b_cand <= b_gate) & (n_mapped_old >= 30)
 
 
 def _loop_pnp(kcfg, Kf, pyr_old, pyr_new, uv_old, X_old, m_old, R_wc0,
@@ -734,13 +744,14 @@ def _pnp_loop_edge(kcfg, Kf, ring: KeyframeRing, X, pyr_old, pyr_new,
     X_j = X[torch.clamp(pid_j, 0, P_CAP - 1).long()]
     d_j = ((X_j - ring.t_cw[cur_kf]) @ ring.R_cw[cur_kf])[:, 2]
     ok_j = m_j & (d_j > 1e-9)
-    med_i = nanmedian(_nan_where(ok_i, d_i))
-    med_j = nanmedian(_nan_where(ok_j, d_j))
-    s_ok = ((torch.sum(ok_i) >= 20) & (torch.sum(ok_j) >= 20)
-            & (med_i > 1e-12))
-    s_rel = torch.nan_to_num(
-        torch.where(s_ok, med_j / torch.clamp(med_i, min=1e-12),
-                    torch.ones_like(med_i)), nan=1.0)
+    with debug.nan_ok():  # NaN marks the unusable depths
+        med_i = nanmedian(_nan_where(ok_i, d_i))
+        med_j = nanmedian(_nan_where(ok_j, d_j))
+        s_ok = ((torch.sum(ok_i) >= 20) & (torch.sum(ok_j) >= 20)
+                & (med_i > 1e-12))
+        s_rel = torch.nan_to_num(
+            torch.where(s_ok, med_j / torch.clamp(med_i, min=1e-12),
+                        torch.ones_like(med_i)), nan=1.0)
     return torch.cat([
         R_ji.reshape(9).to(f32), t_ji.to(f32),
         torch.stack([info["inliers"].to(f32), torch.sum(use).to(f32),
@@ -816,8 +827,9 @@ def _pose_from_track(cfg: SystemConfig, Kf, carry: ScanCarry, pyr,
     xj = epipolar.normalize_by_K(Kf, trk.pos.to(f32))
     rp = _ransac(cfg, carry.gen, xi, xj, matched, pri)
     flow = torch.linalg.vector_norm(trk.pos - prev_pos, dim=-1)
-    parallax = torch.nan_to_num(nanmedian(
-        torch.where(matched, flow, torch.full_like(flow, float("nan")))))
+    with debug.nan_ok():  # NaN marks the unmatched tracks
+        parallax = torch.nan_to_num(nanmedian(
+            torch.where(matched, flow, torch.full_like(flow, float("nan")))))
     # frame-to-frame pose compose T_cw' = T_cw ∘ T_ji^{-1}
     # (ref py:117-127, py:1044); unit-scale between keyframes —
     # the keyframe stage re-derives metric scale from the map

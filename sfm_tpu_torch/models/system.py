@@ -35,7 +35,7 @@ from sfm_tpu_torch.ops import (ba as ba_ops, descriptors, epipolar, features,
                                pnp as pnp_ops, posegraph as pg_ops,
                                triangulate)
 from sfm_tpu_torch.ops.linalg import nanmedian
-from sfm_tpu_torch.utils import artifacts, np_geom
+from sfm_tpu_torch.utils import artifacts, debug, np_geom
 from sfm_tpu_torch.utils.device import resolve, to_device
 from sfm_tpu_torch.utils.profiling import StageTimers
 
@@ -84,8 +84,9 @@ def _two_view_stage(pri, K, pi, pj, valid, num_hypotheses: int,
         None, xi, xj, valid, num_hypotheses=num_hypotheses,
         sampson_thresh=sampson_thresh, min_inliers=min_inliers, pri=pri)
     flow = torch.linalg.vector_norm(pj - pi, dim=-1)
-    parallax = torch.nan_to_num(nanmedian(
-        torch.where(valid, flow, torch.full_like(flow, float("nan")))))
+    with debug.nan_ok():  # NaN marks the invalid tracks
+        parallax = torch.nan_to_num(nanmedian(
+            torch.where(valid, flow, torch.full_like(flow, float("nan")))))
     return torch.cat([
         rp.R.reshape(9).to(f32),
         rp.t.to(f32),
@@ -174,9 +175,10 @@ def _keyframe_fused_stage(
     good = pnp_valid & (Xi[:, 2] > 1e-6) & (den > 1e-10)
     sols = torch.sum(a * b, dim=-1) / torch.where(den > 1e-10, den,
                                                   torch.ones_like(den))
-    s_est = nanmedian(torch.where(good, sols,
-                                  torch.full_like(sols, float("nan"))))
-    s_est = torch.nan_to_num(s_est, nan=1.0)
+    with debug.nan_ok():  # NaN marks the unusable ratios
+        s_est = nanmedian(torch.where(good, sols,
+                                      torch.full_like(sols, float("nan"))))
+        s_est = torch.nan_to_num(s_est, nan=1.0)
     enough = torch.sum(good) >= 5
     one = torch.ones_like(s_est)
     s_map = torch.where(enough & (s_est > 1e-6), s_est, one)

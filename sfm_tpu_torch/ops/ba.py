@@ -38,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from sfm_tpu_torch.ops import lie, linalg
+from sfm_tpu_torch.utils import debug
 
 
 class BAProblem(NamedTuple):
@@ -454,8 +455,10 @@ def _point_gather_plan(pid_idx, obs_valid, P: int, cap: int):
     LM iteration reduces with fixed-index gathers only: no float
     scatter-add, so the sums come out in one order on every run.  ``cap``
     bounds observations per point (the ring gives one per keyframe, so
-    kf_cap is exact); a point with more raises rather than being
-    under-assembled."""
+    kf_cap is exact); rows past ``cap`` are dropped (they land in the
+    dump row P), and under the opt-in numeric checks
+    (``utils.debug``) a drop raises instead, as in the JAX twin.  With
+    the checks off nothing here syncs with the host."""
     M = pid_idx.shape[0]
     dev = pid_idx.device
     seg = torch.where(obs_valid, pid_idx.long(),
@@ -467,11 +470,14 @@ def _point_gather_plan(pid_idx, obs_valid, P: int, cap: int):
     rank = (torch.arange(M, device=dev)
             - starts[torch.clamp(sorted_ids, 0, P - 1)])
     real = sorted_ids < P
-    overflow = int(torch.sum(real & (rank >= cap)))  # one host sync
-    if overflow:
-        raise FloatingPointError(
-            f"_point_gather_plan: {overflow} observations exceed "
-            f"max_obs_per_point={cap} and would be dropped")
+    if debug.numeric_checks_enabled():
+        # a too-small cap silently under-assembles the Hessian; surface
+        # it under the opt-in sanitizer flag (one host sync)
+        overflow = int(torch.sum(real & (rank >= cap)))
+        if overflow:
+            raise FloatingPointError(
+                f"_point_gather_plan: {overflow} observations exceed "
+                f"max_obs_per_point={cap} and would be dropped")
     ok = real & (rank < cap)
     G = torch.full((P + 1, cap), M, dtype=torch.long, device=dev)
     G[torch.where(ok, sorted_ids, torch.full_like(sorted_ids, P)),

@@ -20,6 +20,7 @@ import torch
 
 from sfm_tpu_torch.ops import lie, linalg
 from sfm_tpu_torch.ops.features import top_k_stable
+from sfm_tpu_torch.utils import debug
 
 
 class RelPose(NamedTuple):
@@ -209,9 +210,10 @@ def _polish_rt(R0, t0, xi, xj, valid, thr, iters: int = 10,
         J = dr.transpose(-1, -2)  # (C,N,5)
 
         mask = valid[None] & (r0 * r0 < thr)
-        nan = torch.full_like(r0, float("nan"))
-        med = linalg.nanmedian(torch.where(mask, r0, nan), dim=-1)
-        med = torch.where(torch.isnan(med), torch.sqrt(thr), med)
+        with debug.nan_ok():  # NaN marks the lanes outside the mask
+            nan = torch.full_like(r0, float("nan"))
+            med = linalg.nanmedian(torch.where(mask, r0, nan), dim=-1)
+            med = torch.where(torch.isnan(med), torch.sqrt(thr), med)
         w = (mask & (r0 < 3.0 * med[:, None] + 1e-15)).to(dtype)
         Jw = J * w[..., None]
         H = Jw.transpose(-1, -2) @ J + damping * eye5
@@ -310,9 +312,10 @@ def find_E_ransac(
     # with invalid entries at -inf, take top-8 (ties: lower index first).
     if pri is None:
         pri = sample_priorities(generator, H, N, dev)
-    ninf = torch.full_like(pri, float("-inf"))
-    pri = torch.where(valid[None, :], pri, ninf)
-    _, sample_idx = top_k_stable(pri, 8)  # (H,8)
+    with debug.nan_ok():  # -inf holds the invalid entries out
+        ninf = torch.full_like(pri, float("-inf"))
+        pri = torch.where(valid[None, :], pri, ninf)
+        _, sample_idx = top_k_stable(pri, 8)  # (H,8)
 
     E = eight_point_E(xi[sample_idx], xj[sample_idx])  # (H,3,3)
     err = sampson_error(E, xi[None], xj[None])  # (H,N)
@@ -349,10 +352,12 @@ def find_E_ransac(
                                         mask_k, vote_cap)
         votes_p = votes_p[:, 0]
         passes = votes_p.to(dtype) >= 0.9 * n_avail.to(dtype)
-        gated = torch.where(passes, cost, torch.full_like(cost, float("inf")))
+        with debug.nan_ok():  # +inf holds the failing candidates out
+            gated = torch.where(passes, cost,
+                                torch.full_like(cost, float("inf")))
+            best_gated = torch.argmin(gated)
         any_pass = torch.any(passes)
-        best_k = torch.where(any_pass, torch.argmin(gated),
-                             torch.argmax(votes_p))
+        best_k = torch.where(any_pass, best_gated, torch.argmax(votes_p))
         R, t = Rk[best_k], tk[best_k]
         E_best = Ek[best_k]
         mask = mask_k[best_k]

@@ -75,8 +75,9 @@ def _shift_zero(x, d: int, dim: int):
 
 
 def box_filter(img, radius: int):
-    """(2r+1)^2 box sum with zero boundary contributions (ref cpp:252-263),
-    by 2r shifted adds per axis.
+    """(2r+1)^2 box sum over the last two axes with zero boundary
+    contributions (ref cpp:252-263), by 2r shifted adds per axis; an
+    (H,W) image or a batch (...,H,W) of planes (the stereo cost volume).
 
     Not the cumulative-sum differences of the JAX twin: a float32
     cumulative sum over a 480-row image of squared gradients reaches ~1e7
@@ -86,8 +87,8 @@ def box_filter(img, radius: int):
     outward; rows first), so the kernel is held to it at rounding level."""
     row = img
     for d in range(1, radius + 1):
-        row = row + _shift_zero(img, d, 1) + _shift_zero(img, -d, 1)
+        row = row + _shift_zero(img, d, -1) + _shift_zero(img, -d, -1)
     out = row
     for d in range(1, radius + 1):
-        out = out + _shift_zero(row, d, 0) + _shift_zero(row, -d, 0)
+        out = out + _shift_zero(row, d, -2) + _shift_zero(row, -d, -2)
     return out

@@ -13,7 +13,8 @@ sfm_tpu/ops/klt._lk_level: ``_load_blocks`` (here a direct window gather
 by index), ``_qf``, ``_bil_t`` and the loop body (``_lk_iterate_plain``,
 shared by the plain versions of K3 and K4).  Block storage is float32 only.
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
-plain version only for CPU tensors.
+plain version only for CPU tensors; under the numeric checks
+(``utils.debug``) it checks what its kernel wrote for NaN/Inf.
 
 Layout: tracks lead — blocks are (T, WIN, WIN), patches (T, P, P).  (The
 JAX twin keeps tracks on the last axis for the TPU's lanes.)
@@ -30,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from sfm_tpu_torch.ops.kernels import build
+from sfm_tpu_torch.utils import debug
 
 MARGIN = 6  # per-level search margin in px beyond the patch
 
@@ -126,7 +128,7 @@ def _lk_gather_pair_cuda(img0, starts0, win0, img1, starts1, win1):
             out1.data_ptr(), stream)
     build.check_launch(code, "lk_gather_pair")
     gather_launches += 1
-    return out0, out1
+    return debug.check_finite((out0, out1), "lk_gather_pair")
 
 
 def lk_gather_pair(img0, starts0, win0: int, img1, starts1, win1: int):
@@ -169,7 +171,7 @@ def _lk_gather_cuda(img, starts, win):
                                  int(win), out.data_ptr(), stream)
     build.check_launch(code, "lk_gather")
     gather1_launches += 1
-    return out
+    return debug.check_finite(out, "lk_gather")
 
 
 def lk_gather(img, starts, win: int):
@@ -335,7 +337,7 @@ def _lk_level_fused_cuda(img0, img1, p0_l, v, iters, radius, min_det,
             float(min_det), out.data_ptr(), stream)
     build.check_launch(code, "lk_level_fused")
     level_launches += 1
-    return out
+    return debug.check_finite(out, "lk_level_fused")
 
 
 def lk_level_fused(img0, img1, p0_l, v, iters: int, radius: int,
@@ -392,7 +394,7 @@ def _lk_level_tmpl_cuda(blocks, tmpl, base, v, iters, min_det):
             out.data_ptr(), stream)
     build.check_launch(code, "lk_level_tmpl")
     tmpl_launches += 1
-    return out
+    return debug.check_finite(out, "lk_level_tmpl")
 
 
 def lk_level_tmpl(blocks, tmpl, base, v, iters: int, min_det: float):

@@ -4,9 +4,10 @@ Counterpart of sfm_tpu/ops/pallas/shi_tomasi_kernel.py
 (``shi_tomasi_score_pallas``); CUDA source: csrc/shi_tomasi.cu.
 
 ``shi_tomasi_score`` launches the kernel for a CUDA tensor (or raises) and
-takes ``shi_tomasi_score_plain`` only for a CPU tensor.  Both use the plain
-version's border semantics (zero gradient on the image border, zero-padded
-box sum), so they agree on the whole map.
+takes ``shi_tomasi_score_plain`` only for a CPU tensor; under the numeric
+checks (``utils.debug``) it checks the kernel's map for NaN/Inf.  Both use
+the plain version's border semantics (zero gradient on the image border,
+zero-padded box sum), so they agree on the whole map.
 
 Both take one (H,W) image or a stack of scenes' images (S,H,W), the axis
 the JAX twin gets under ``jax.vmap`` (sfm_tpu/parallel/multi_scan.py): the
@@ -20,6 +21,7 @@ import torch
 
 from sfm_tpu_torch.ops import image as im
 from sfm_tpu_torch.ops.kernels import build
+from sfm_tpu_torch.utils import debug
 
 launches = 0  # kernel launches made by shi_tomasi_score (plain int)
 
@@ -67,7 +69,7 @@ def _shi_tomasi_score_cuda(img, block_radius: int):
                                   out.data_ptr(), stream)
     build.check_launch(code, "shi_tomasi")
     launches += 1
-    return out
+    return debug.check_finite(out, "shi_tomasi")
 
 
 def shi_tomasi_score(img, block_radius: int = 2):

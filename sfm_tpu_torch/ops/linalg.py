@@ -19,10 +19,13 @@ import math
 
 import torch
 
+from sfm_tpu_torch.utils import debug
+
 
 def _jacobi_t(tau, apq, tiny: float):
     """tan of the rotation angle from tau = (aqq-app)/(2 apq)."""
-    t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+    with debug.nan_ok():  # tau*tau may overflow to +inf: then t = 0
+        t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
     return torch.where(apq.abs() < tiny, torch.zeros_like(t), t)
 
 
@@ -311,10 +314,12 @@ def nanmedian(x, dim: int = -1):
     for an even count (what ``jnp.nanmedian`` returns; ``torch.nanmedian``
     returns the lower one). All-NaN slices give NaN."""
     x = x.movedim(dim, -1)
-    srt, _ = torch.sort(x, dim=-1)  # NaNs sort last
-    n = torch.sum(~torch.isnan(x), dim=-1, keepdim=True)
-    lo = torch.clamp((n - 1) // 2, min=0)
-    hi = torch.clamp(n // 2, max=x.shape[-1] - 1)
-    med = 0.5 * torch.gather(srt, -1, lo) + 0.5 * torch.gather(srt, -1, hi)
-    nan = torch.full_like(med, float("nan"))
-    return torch.where(n > 0, med, nan)[..., 0]
+    with debug.nan_ok():  # NaN in, NaN out for an all-NaN slice
+        srt, _ = torch.sort(x, dim=-1)  # NaNs sort last
+        n = torch.sum(~torch.isnan(x), dim=-1, keepdim=True)
+        lo = torch.clamp((n - 1) // 2, min=0)
+        hi = torch.clamp(n // 2, max=x.shape[-1] - 1)
+        med = (0.5 * torch.gather(srt, -1, lo)
+               + 0.5 * torch.gather(srt, -1, hi))
+        nan = torch.full_like(med, float("nan"))
+        return torch.where(n > 0, med, nan)[..., 0]

@@ -23,6 +23,7 @@ import torch
 
 from sfm_tpu_torch.ops import features, image as im
 from sfm_tpu_torch.ops.features import top_k_stable
+from sfm_tpu_torch.utils import debug
 from sfm_tpu_torch.utils.device import resolve, to_device
 
 N_BITS = 256
@@ -93,12 +94,14 @@ def match_hamming(desc_a, valid_a, desc_b, valid_b, ratio: float = 0.75):
     sa = torch.sum(desc_a, dim=-1, keepdim=True)  # (Ka,1)
     sb = torch.sum(desc_b, dim=-1, keepdim=True)  # (Kb,1)
     D = sa + sb.T - 2.0 * (desc_a @ desc_b.T)     # Hamming distances
-    D = torch.where(valid_b[None, :], D, torch.full_like(D, float("inf")))
-    # the two smallest per row, ties to the lower index (as lax.top_k)
-    top2, idx2 = top_k_stable(-D, 2)
-    d1 = -top2[..., 0]
-    d2 = -top2[..., 1]
-    ok = valid_a & (d1 < ratio * d2) & torch.isfinite(d1)
+    with debug.nan_ok():  # +inf holds invalid b out; dist may stay inf
+        D = torch.where(valid_b[None, :], D,
+                        torch.full_like(D, float("inf")))
+        # the two smallest per row, ties to the lower index (as lax.top_k)
+        top2, idx2 = top_k_stable(-D, 2)
+        d1 = -top2[..., 0]
+        d2 = -top2[..., 1]
+        ok = valid_a & (d1 < ratio * d2) & torch.isfinite(d1)
     return idx2[..., 0], ok, d1
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from sfm_tpu_torch.ops import lie, linalg
+from sfm_tpu_torch.utils import debug
 
 _CUTOFF = 10.0
 
@@ -63,10 +64,12 @@ def refine_pose(R0, t0, X, obs, valid, iters: int = 10,
         # would also cut true points when the INIT error exceeds it, so
         # widen by the current robust residual scale
         use = valid & z_ok
-        med = linalg.nanmedian(
-            torch.where(use, n, torch.full_like(n, float("nan"))), dim=-1)
-        med = torch.where(torch.isnan(med),
-                          torch.full_like(med, huber_delta), med)
+        with debug.nan_ok():  # NaN marks the unused lanes
+            med = linalg.nanmedian(
+                torch.where(use, n, torch.full_like(n, float("nan"))),
+                dim=-1)
+            med = torch.where(torch.isnan(med),
+                              torch.full_like(med, huber_delta), med)
         cut = torch.clamp(3.0 * med, min=_CUTOFF * huber_delta)
         w = torch.where(n > cut[..., None], torch.zeros_like(w), w)
         w = w * use.to(dtype)

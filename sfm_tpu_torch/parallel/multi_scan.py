@@ -53,6 +53,7 @@ import torch
 
 from sfm_tpu_torch.config import KLTConfig, SystemConfig
 from sfm_tpu_torch.models import scan_pipeline as sp, tracker
+from sfm_tpu_torch.utils import debug
 from sfm_tpu_torch.utils.device import resolve, to_device
 
 log = logging.getLogger("sfm_tpu_torch")
@@ -186,16 +187,17 @@ def _finalize_refine_scenes_stage(Kf, carries, n_pts, do0, later, enab,
     """``_finalize_refine_core`` for each scene on its own ring and map,
     with that scene's gate flags, and ONE pull of all results: (S, P*3+2)
     float64 rows [X | cost0 | cost] (costs NaN where no polish ran)."""
-    rows = []
-    for c, n, f0, fl, fe in zip(carries, n_pts, do0, later, enab):
-        X, cost0, cost = sp._finalize_refine_core(
-            Kf, c.ring, c.X, n, f0, fl, fe, iters, rounds, lambda0,
-            huber_delta)
-        costs = torch.stack([torch.as_tensor(
-            float("nan") if v is None else v, dtype=sp.f32, device=X.device)
-            for v in (cost0, cost)])
-        rows.append(torch.cat([X.reshape(-1), costs]))
-    return torch.stack(rows).cpu().numpy().astype(np.float64)
+    outs = [sp._finalize_refine_core(Kf, c.ring, c.X, n, f0, fl, fe, iters,
+                                     rounds, lambda0, huber_delta)
+            for c, n, f0, fl, fe in zip(carries, n_pts, do0, later, enab)]
+    with debug.nan_ok():  # NaN: no polish ran
+        rows = []
+        for X, cost0, cost in outs:
+            costs = torch.stack([torch.as_tensor(
+                float("nan") if v is None else v, dtype=sp.f32,
+                device=X.device) for v in (cost0, cost)])
+            rows.append(torch.cat([X.reshape(-1), costs]))
+        return torch.stack(rows).cpu().numpy().astype(np.float64)
 
 
 def _refine_scenes(views, cfg: SystemConfig) -> None:

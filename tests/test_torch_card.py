@@ -172,3 +172,29 @@ def test_torch_scene_batched_kernels_match_single_launches(rng):
                                         1e-4)
         ok = torch.isfinite(pts[s]).all(-1)
         assert float((out[s] - ref)[ok].abs().max()) <= 1e-4, s
+
+
+@pytest.mark.gpu
+def test_torch_disparity_on_card_matches_cpu(rng):
+    """The stereo matcher (models.mesh._disparity_sad, plain PyTorch) on a
+    96x128 fronto-parallel pair at disparity 6, 16 disparities, radius 3,
+    SGM on: the card against the CPU, to the shares of
+    tests/test_torch_mesh.py (lr_ok equal on >= 99 % of the pixels, the
+    integer disparity on >= 99 % of those both keep, |delta| <= 0.05 px at
+    the 99th percentile).  ``python3 chip_smoke.py`` runs the same
+    comparison at 640x480 with 128 disparities."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sfm_tpu_torch.models import mesh
+
+    img = make_textured(rng, 96, 160)
+    left = torch.as_tensor(img[:, 16:144].copy())
+    right = torch.as_tensor(img[:, 22:150].copy())
+    dc, oc = mesh._disparity_sad(left, right, 16, 3)
+    dg, og = mesh._disparity_sad(left.cuda(), right.cuda(), 16, 3)
+    dc, oc, dg, og = dc.numpy(), oc.numpy(), dg.cpu().numpy(), og.cpu().numpy()
+    assert (oc == og).mean() >= 0.99
+    both = oc & og
+    same = (np.rint(dc) == np.rint(dg)) | (np.abs(dc - dg) <= 1e-3)
+    assert same[both].mean() >= 0.99
+    assert np.percentile(np.abs(dc - dg)[both], 99) <= 0.05

@@ -115,19 +115,6 @@ def test_torch_cli_host_orb_from_config(jax_cli, tmp_path):
     _check_outputs(out, res.stdout.splitlines(), *jax_cli, HOST_LINE)
 
 
-@pytest.mark.parametrize("flags", [["--visuals"], ["--debug-nans"],
-                                   ["--export-geometry", "mesh"],
-                                   ["--export-geometry", "mesh_stereo"],
-                                   ["--export-geometry", "both"]])
-def test_torch_cli_unported_options_raise(flags, tmp_path):
-    """What is not ported yet raises, pointing at ROADMAP.md, before any
-    work is done."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["--synthetic", "2", "--device", "cpu",
-                  "--out", str(tmp_path), *flags])
-    assert not (tmp_path / "_synthetic").exists()
-
-
 def test_torch_cli_defaults_to_the_card(tmp_path):
     """The JAX CLI's flags with its defaults (``--pipeline host`` among
     them), plus ``--device`` with default ``cuda``; without a card the CLI
