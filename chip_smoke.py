@@ -48,7 +48,17 @@ Phases, one JSON line each on standard output:
             device time, kernel launches and peak memory of one
             _disparity_sad call, and that call on the card against the
             same call on the CPU); and the sparse Delaunay mesh of the
-            pipeline phase's map in its keyframe 0.
+            pipeline phase's map in its keyframe 0;
+  multichip the parallel runners over one NCCL rank per card (``world``
+            = the card count, ``parallel.distributed.launch``): in each
+            rank a sum over the mesh's ``scene`` group,
+            ``multiscene.make_scene_step`` at full width on two rendered
+            frame pairs a rank, ``find_E_sharded`` over every rank,
+            ``batch_runner.run_scenes`` and ``run_scenes_scan(mesh=...)``
+            on 2 x world 16-frame 640x480 rings at ``smoke_config()``
+            (rank 0's kernel launches counted), rank 0 also the same
+            ``run_scenes_scan`` without a mesh, which must give the same
+            bits; then ``dryrun.dryrun_multichip(world)``.
 
 The kernels phase also holds the scene-batched launches of K1 and K3 (four
 rendered frames of the ring, S = 4, the multi-scene runner's level-0
@@ -906,10 +916,17 @@ def ring_dataset(tmp: Path):
 
 def ate_ratio(kfs, ds) -> float:
     """Sim(3) ATE of the keyframe centres over the trajectory's extent."""
+    return centers_ate_ratio([kf.center for kf in kfs],
+                             [kf.frame_idx for kf in kfs], ds)
+
+
+def centers_ate_ratio(centers, frames, ds) -> float:
+    """Sim(3) ATE of camera centres of the frames ``frames`` of ``ds``
+    over the extent of their GT centres."""
     from sfm_tpu_torch.ops import umeyama
 
-    est = np.stack([kf.center for kf in kfs]).astype(np.float64)
-    gt = np.stack([ds.records[kf.frame_idx].center for kf in kfs])
+    est = np.asarray(np.stack(centers), np.float64)
+    gt = np.stack([ds.records[int(f)].center for f in frames])
     res = umeyama.ate(torch.as_tensor(est), torch.as_tensor(gt),
                       with_scale=True)
     extent = float(np.linalg.norm(gt - gt.mean(0), axis=1).max())
@@ -1740,6 +1757,297 @@ def phase_mesh(dev, sparse_inputs) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase: multichip (the parallel runners, one NCCL rank per card)
+# ---------------------------------------------------------------------------
+
+MC_FRAMES = 16       # frames of each ring: cut in depth, full width
+MC_SCENES_PER_RANK = 2
+MC_STEP_TRACKS = T_TRACKS
+MC_HYPOTHESES = 1024
+# the scene step's LO-RANSAC rotations against the rendered ones (max abs
+# entry; ~0.3 degrees)
+MC_ROT_TOL = 5e-3
+# find_E_sharded keeps the best raw 8-point hypothesis (no local
+# optimisation): it has recovered the rendered pose when it explains the
+# pair nearly as the rendered pose's E does, its truncated Sampson cost
+# within MC_E_COST_RATIO of that E's and its inliers at least
+# MC_E_INLIER_SHARE of that E's
+MC_E_COST_RATIO = 3.0
+MC_E_INLIER_SHARE = 0.9
+
+
+def mc_ring_datasets(root: Path, n_scenes: int):
+    """The phase's rings under ``root``: the first ``MC_FRAMES`` cameras of
+    the ring (texture seed 7) and more rings of the same spec with texture
+    seeds 8, 9, ..., as the multiscene phase lays them out."""
+    import dataclasses
+
+    from sfm_tpu_torch.utils.dataset import TempleRing
+    from sfm_tpu_torch.utils.synthetic import generate_dataset
+
+    dss = []
+    for s in range(n_scenes):
+        spec = dataclasses.replace(short_ring_spec(MC_FRAMES),
+                                   seed=ring_spec().seed + s)
+        if not (root / f"scene{s}").exists():
+            generate_dataset(root / f"scene{s}", spec, name_prefix="templeR")
+        dss.append(TempleRing.from_dir(root / f"scene{s}"))
+    return dss
+
+
+def _rel_pose(ds, i: int, j: int):
+    """The relative pose i -> j of a ring's GT cameras (x_j = R x_i + t)."""
+    a, b = ds.records[i], ds.records[j]  # R, t: world -> camera
+    R = b.R @ a.R.T
+    return R, b.t - R @ a.t
+
+
+def multichip_rank(root: str, frames: int, device: str) -> dict:
+    """One rank of the multichip phase (``distributed.launch`` started it
+    and joined it to the group): collectives, ``make_scene_step`` at full
+    width, ``find_E_sharded`` over every rank, ``batch_runner.run_scenes``
+    and ``run_scenes_scan(mesh=...)`` on 2 rings a rank, rank 0 also the
+    same ``run_scenes_scan`` without a mesh, which must match it."""
+    import torch.distributed as dist
+
+    from sfm_tpu_torch.models import tracker
+    from sfm_tpu_torch.ops import ba, epipolar, image as im, lie
+    from sfm_tpu_torch.parallel import (batch_runner, mesh as mesh_lib,
+                                        multiscene)
+    from sfm_tpu_torch.parallel.multi_scan import run_scenes_scan, scene_seed
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n_scenes = MC_SCENES_PER_RANK * world
+    dss = mc_ring_datasets(Path(root), n_scenes)
+    cfg = smoke_config()
+    kcfg = cfg.klt
+    sec, checks = {}, {}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    # 1. collectives: the sum of scene coordinates over the scene group
+    t0 = time.perf_counter()
+    m = mesh_lib.make_mesh(world, device=device)
+    dev = mesh_lib.rank_device(m, device)
+    idx = torch.tensor(m.get_local_rank("scene"), device=dev)
+    dist.all_reduce(idx, group=m.get_group("scene"))
+    n = m.size(0)
+    checks["collectives"] = int(idx) == n * (n - 1) // 2
+    sec["collectives"] = time.perf_counter() - t0
+
+    # 2. make_scene_step at full width on this rank's two scenes: scene s
+    # is frames (s, s + 1) of ring 0, tracks from a K1 bootstrap
+    t0 = time.perf_counter()
+    K = torch.as_tensor(dss[0].K, dtype=torch.float32, device=dev)
+    scenes = list(mesh_lib.local_scenes(m, n_scenes))
+
+    def pyr(frames_):
+        """The stacked pyramids of ring 0's frames ``frames_``."""
+        levels = [im.build_pyramid(torch.as_tensor(
+            np.array(dss[0].load_gray(f)), dtype=torch.float32, device=dev),
+            kcfg.pyr_levels) for f in frames_]
+        return tuple(torch.stack(lv).contiguous() for lv in zip(*levels))
+
+    pyr0, pyr1 = pyr(scenes), pyr([s + 1 for s in scenes])
+    states = tracker.bootstrap_scenes(pyr0[0], kcfg)
+    state = tracker.TrackerState(*(torch.stack(f) for f in zip(*states)))
+    n_boot = torch.sum(state.valid)
+    dist.all_reduce(n_boot, group=m.get_group("scene"))
+    S_loc, P_, M_ = len(scenes), 16, 64
+    g = np.random.default_rng(0)
+    t_wc = torch.zeros((S_loc, 2, 3), device=dev)
+    t_wc[:, 1, 0] = 0.5
+    prob = ba.BAProblem(
+        R_wc=torch.eye(3, device=dev).repeat(S_loc, 2, 1, 1), t_wc=t_wc,
+        X=torch.as_tensor(g.standard_normal((S_loc, P_, 3)) * 0.3
+                          + [0, 0, 4.0], dtype=torch.float32, device=dev),
+        cam_idx=(torch.arange(M_, device=dev) % 2).int().repeat(S_loc, 1),
+        pid_idx=(torch.arange(M_, device=dev) % P_).int().repeat(S_loc, 1),
+        obs=torch.zeros((S_loc, M_, 2), device=dev),
+        obs_valid=torch.ones((S_loc, M_), dtype=torch.bool, device=dev),
+        point_valid=torch.ones((S_loc, P_), dtype=torch.bool, device=dev))
+    gens = []
+    for s in scenes:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(scene_seed(cfg.ransac.seed, s))
+        gens.append(gen)
+    step = multiscene.make_scene_step(m, kcfg, num_hypotheses=MC_HYPOTHESES,
+                                      ba_iters=2)
+    with torch.no_grad():
+        new_state, rp, ba_out, metrics = step(gens, K, pyr0, pyr1, state,
+                                              prob)
+    sync()
+    sec["scene_step"] = time.perf_counter() - t0
+    rot_err = [float(np.abs(rp.R[k].cpu().numpy()
+                            - _rel_pose(dss[0], s, s + 1)[0]).max())
+               for k, s in enumerate(scenes)]
+    checks["scene_step"] = (
+        tuple(new_state.pos.shape) == (S_loc, kcfg.max_tracks, 2)
+        and bool(rp.ok.all()) and max(rot_err) < MC_ROT_TOL
+        and int(metrics["tracks_alive"]) > int(n_boot) // 4
+        and bool(torch.isfinite(ba_out[2]).all()))
+
+    # 3. find_E_sharded: MC_HYPOTHESES over every rank (hyp = world) on
+    # the tracks of frames 0 -> 1 (every rank tracks the same pair)
+    t0 = time.perf_counter()
+    mh = mesh_lib.make_mesh(world, hyp_axis=world, device=device)
+    p0, p1 = pyr([0]), pyr([1])
+    trk = tracker.bootstrap_scenes(p0[0], kcfg)[0]
+    with torch.no_grad():
+        new, ok = multiscene.batched_lk(
+            p0, p1, trk.pos[None], trk.valid[None], kcfg.pyr_levels,
+            kcfg.iters, kcfg.win_radius, kcfg.fb_thresh, device=dev)
+        matched = trk.valid & ok[0]
+        E, cost = multiscene.find_E_sharded(
+            cfg.ransac.seed, epipolar.normalize_by_K(K, trk.pos),
+            epipolar.normalize_by_K(K, new[0]), matched, mh,
+            num_hypotheses_total=MC_HYPOTHESES,
+            sampson_thresh=cfg.ransac.sampson_thresh)
+    sync()
+    sec["find_E_sharded"] = time.perf_counter() - t0
+    R01, t01 = _rel_pose(dss[0], 0, 1)
+    E_gt = lie.hat(torch.as_tensor(t01)).numpy() @ R01
+    xi0 = epipolar.normalize_by_K(K, trk.pos)
+    xj0 = epipolar.normalize_by_K(K, new[0])
+    thr = torch.tensor(cfg.ransac.sampson_thresh, device=dev)
+    fit = []  # (truncated cost, inliers) of the found E, then of E_gt
+    for E_ in (E, torch.as_tensor(E_gt, dtype=torch.float32, device=dev)):
+        err = epipolar.sampson_error(E_[None], xi0[None], xj0[None])[0]
+        fit.append((float(torch.where(matched, torch.minimum(err, thr),
+                                      torch.zeros_like(err)).sum()),
+                    int(((err < thr) & matched).sum())))
+    E_n = E.cpu().numpy() / np.linalg.norm(E.cpu().numpy())
+    E_g = E_gt / np.linalg.norm(E_gt)
+    e_err = float(min(np.abs(E_n - E_g).max(), np.abs(E_n + E_g).max()))
+    checks["find_E_sharded"] = (
+        abs(float(cost) - fit[0][0]) <= 1e-3 * fit[0][0]
+        and fit[0][0] <= MC_E_COST_RATIO * fit[1][0]
+        and fit[0][1] >= MC_E_INLIER_SHARE * fit[1][1])
+
+    # 4. the lockstep batch runner on every ring
+    t0 = time.perf_counter()
+    rs = batch_runner.run_scenes(dss, m, kcfg=kcfg, rcfg=cfg.ransac,
+                                 frames=frames, seed=cfg.ransac.seed,
+                                 device=device)
+    sync()
+    sec["run_scenes"] = time.perf_counter() - t0
+    ate_rs = [centers_ate_ratio(rs["centers"][s], range(frames), ds)
+              for s, ds in enumerate(dss)]
+    checks["run_scenes_ate"] = all(a < 0.2 for a in ate_rs)
+
+    # 5. run_scenes_scan sharded over the scene axis; rank 0 then runs the
+    # same call without a mesh, which must give the same bits
+    kw = dict(frames=frames, chunk=16, device=device)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        res = run_scenes_scan(dss, cfg, mesh=m, **kw)
+    sync()
+    sec["run_scenes_scan"] = time.perf_counter() - t0
+    counts = read_launches()
+    host_ver = sum(v.host_verifications for v in res["views"] if v)
+    ate_scan = [centers_ate_ratio(res["centers"][s], res["kf_frames"][s],
+                                  dss[s]) for s in range(n_scenes)]
+    checks["run_scenes_scan_ate"] = all(a < 0.05 for a in ate_scan)
+    checks["run_scenes_scan_keyframes"] = all(
+        int(k) >= 8 for k in res["n_keyframes"])
+    checks["k3_launches"] = counts["lk_level_fused"] == (
+        (frames - 1) + host_ver) * LEVELS * 2
+    checks["k1_launches"] = counts["shi_tomasi_score"] >= 1
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "mesh": dict(zip(m.mesh_dim_names, m.shape)),
+           "scenes": scenes, "launches": counts,
+           "host_verifications": host_ver,
+           "rot_err_scene_step": rot_err,
+           "tracks": int(n_boot),
+           "tracks_alive": int(metrics["tracks_alive"]),
+           "inliers": int(metrics["inliers"]),
+           "E_err": e_err, "E_cost": float(cost),
+           "E_fit_vs_rendered": fit,
+           "ate_run_scenes": ate_rs, "ate": ate_scan,
+           "keyframes": [int(k) for k in res["n_keyframes"]],
+           "map_points": [int(k) for k in res["n_points"]],
+           "loop_edges": [[(e.i, e.j) for e in le]
+                          for le in res["loop_edges"]]}
+    if rank == 0:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            one = run_scenes_scan(dss, cfg, **kw)
+        sync()
+        sec["run_scenes_scan_unsharded"] = time.perf_counter() - t0
+        same = {
+            "keyframes": all(np.array_equal(a, b) for a, b in
+                             zip(res["kf_frames"], one["kf_frames"])),
+            "centers": all(np.array_equal(a, b) for a, b in
+                           zip(res["centers"], one["centers"])),
+            "map_points": np.array_equal(res["n_points"], one["n_points"]),
+            "loop_edges": out["loop_edges"] == [
+                [(e.i, e.j) for e in le] for le in one["loop_edges"]],
+            "metrics": np.array_equal(res["metrics"], one["metrics"])}
+        out["bit_equal_unsharded"] = same
+        checks["sharded_equals_unsharded"] = all(same.values())
+    out["seconds"] = sec
+    out["checks"] = checks
+    return out
+
+
+def phase_multichip(dev) -> tuple[dict, dict]:
+    """The parallel runners on one NCCL rank per card
+    (``world = torch.cuda.device_count()``, the ``spawn`` start method;
+    the ranks load the kernels the build phase compiled): see
+    ``multichip_rank``.  Then ``dryrun.dryrun_multichip(world)`` from this
+    process (it starts its own ranks, one per card).  Returns the line
+    and rank 0's launch counts of its sharded ``run_scenes_scan``."""
+    from sfm_tpu_torch.parallel import distributed, dryrun
+
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="sfm_mc_") as tmp:
+        t0 = time.perf_counter()
+        mc_ring_datasets(Path(tmp), MC_SCENES_PER_RANK * world)
+        render_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = distributed.launch(multichip_rank, world,
+                                  args=(tmp, MC_FRAMES, "cuda"),
+                                  device="cuda", timeout_s=600.0)
+        job_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(world, device="cuda")
+    dry_s = time.perf_counter() - t0
+    r0 = outs[0]
+    checks = {f"rank{o['rank']}.{k}": v for o in outs
+              for k, v in o["checks"].items()}
+    checks["backend_nccl"] = all(o["backend"] == "nccl" for o in outs)
+    checks["dryrun"] = dry["backend"] == "nccl"
+    line = {
+        "phase": "multichip", "world": world, "backend": r0["backend"],
+        "mesh": r0["mesh"], "frames": MC_FRAMES,
+        "scenes": MC_SCENES_PER_RANK * world,
+        "wall_s": {"render": render_s, "ranks": job_s, "dryrun": dry_s,
+                   **{f"rank0.{k}": v for k, v in r0["seconds"].items()}},
+        "ate_run_scenes": r0["ate_run_scenes"], "ate_ratio": r0["ate"],
+        "keyframes": r0["keyframes"], "map_points": r0["map_points"],
+        "loop_edges": r0["loop_edges"],
+        "scene_step": {"tracks": r0["tracks"],
+                       "tracks_alive": r0["tracks_alive"],
+                       "inliers": r0["inliers"],
+                       "rot_err": r0["rot_err_scene_step"]},
+        "find_E_sharded": {"E_err": r0["E_err"], "cost": r0["E_cost"],
+                           "cost_inliers_found_rendered":
+                           r0["E_fit_vs_rendered"]},
+        "bit_equal_unsharded": r0["bit_equal_unsharded"],
+        "launches_rank0": r0["launches"],
+        "host_verifications_rank0": r0["host_verifications"],
+        "expect_k3_rank0": (MC_FRAMES - 1 + r0["host_verifications"])
+        * LEVELS * 2,
+        "dryrun": dry, "checks": checks, "ok": all(checks.values()),
+    }
+    return line, r0["launches"]
+
+
 def short_ring_spec(n: int):
     """The first ``n`` cameras of the ring (the angular step is kept)."""
     import dataclasses
@@ -1829,6 +2137,11 @@ def main() -> int:
     emit(line)
     if not line["ok"]:
         print("chip_smoke: the mesh phase failed", file=sys.stderr)
+        return 1
+    line, by_path["multichip"] = phase_multichip(dev)
+    emit(line)
+    if not line["ok"]:
+        print("chip_smoke: the multichip phase failed", file=sys.stderr)
         return 1
     if args.profile:
         with torch.no_grad():

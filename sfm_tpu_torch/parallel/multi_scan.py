@@ -38,8 +38,12 @@ its pose-graph pushback (``ScanSfM._pose_graph_pushback``) writes where
 the JAX twin's ``_apply_pushback`` and ``_writeback_scene_poses`` copy
 into the batched carry; those two have no counterpart here.
 
-``mesh=`` (scene sharding over several cards) is not ported: see
-ROADMAP.md, Queue 1 item 3.
+``mesh=`` spreads the scenes over the ranks of a ``("scene", "hyp")``
+mesh (``parallel/mesh.make_mesh``), one device each: rank r runs this
+runner on the scenes of its ``scene`` coordinate, each scene with its
+global index for its draws, and the results are gathered over the
+``scene`` group (the JAX twin places its batched carry with
+``NamedSharding(P("scene"))`` under one controller instead).
 """
 
 from __future__ import annotations
@@ -47,12 +51,15 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from sfm_tpu_torch.config import KLTConfig, SystemConfig
 from sfm_tpu_torch.models import scan_pipeline as sp, tracker
+from sfm_tpu_torch.parallel.mesh import gather_scenes, local_scenes, \
+    rank_device
 from sfm_tpu_torch.utils import debug
 from sfm_tpu_torch.utils.device import resolve, to_device
 
@@ -245,6 +252,17 @@ def _kf_rows(rows: np.ndarray) -> np.ndarray:
     return rows[(rows[:, sp.Y_VALID] > 0.5) & (rows[:, sp.Y_KF] > 0.5)]
 
 
+# the result fields that a mesh run gathers over its ``scene`` group
+_GATHERED = ("centers", "kf_frames", "n_keyframes", "n_points",
+             "loop_edges", "metrics")
+
+
+def _scene_path(path, c: int) -> Path:
+    """The checkpoint of ``scene`` coordinate ``c``, beside ``path``."""
+    p = Path(path)
+    return p.with_name(f"{p.stem}_scene{c}{p.suffix}")
+
+
 def run_scenes_scan(datasets, cfg: SystemConfig, frames: int | None = None,
                     chunk: int = 16, p_cap: int = 16384, p_ba: int = 1024,
                     seed: int | None = None, images=None, mesh=None,
@@ -258,18 +276,24 @@ def run_scenes_scan(datasets, cfg: SystemConfig, frames: int | None = None,
 
     ``datasets``: TempleRing handles with identical K/shape.  ``images``:
     optional preloaded grays, ``images[s][i]`` (keeps file IO out of the
-    timing).  ``mesh``: not ported (raises ``NotImplementedError``; see
-    ROADMAP.md, Queue 1 item 3).  ``gated``: accepted for the JAX twin's
+    timing).  ``mesh``: a ``("scene", "hyp")`` ``DeviceMesh``
+    (``parallel/mesh.make_mesh``); this rank then runs the scenes of its
+    ``scene`` coordinate (S must divide by the scene axis) and every rank
+    returns JAX's layout for all S scenes (below); ``device`` must be of
+    the mesh's type.  ``gated``: accepted for the JAX twin's
     signature; both values run the one schedule of ``_run_chunk_scenes``
     (the JAX package's own ``test_gated_matches_ungated`` shows its two
     schedules agree).  ``out_dirs``: optional per-scene output directories
-    for the artifacts (centers CSV, edges CSV, PLY).
-    ``checkpoint_path`` + ``checkpoint_every``: write a resumable
+    for the artifacts (centers CSV, edges CSV, PLY); under a mesh each
+    ``scene`` coordinate exports its own scenes (the ranks of ``hyp``
+    coordinate 0 write).  ``checkpoint_path`` + ``checkpoint_every``: write a resumable
     checkpoint (every scene's carry, generator state included, each
     scene's loop/pose-graph state and the pulled metric rows) every N
     chunks; ``resume=True`` re-enters a run from ``checkpoint_path``
-    bit-identically (same datasets/config/capacities required).
-    ``seed``: RANSAC seed of scene 0 (default ``cfg.ransac.seed``); scene
+    bit-identically (same datasets/config/capacities required).  Under a
+    mesh each ``scene`` coordinate writes and resumes its own scenes, in
+    ``<stem>_scene<c><suffix>`` beside the path (written by the ranks of
+    ``hyp`` coordinate 0, read by all).  ``seed``: RANSAC seed of scene 0 (default ``cfg.ransac.seed``); scene
     s draws from ``scene_seed(seed, s)``.  ``device``: ``"cuda"`` (the
     default; raises without a card) or ``"cpu"``.  ``_pri_source``: tests
     hand in RANSAC priorities here, a callable (scene, frame) ->
@@ -278,21 +302,57 @@ def run_scenes_scan(datasets, cfg: SystemConfig, frames: int | None = None,
     Returns a dict with per-scene keyframe centers, keyframe frames,
     counts, loop edges, map sizes, the views, the metric rows (S, F, NY)
     and the phase timers.  Centers/frames are the post-pose-graph,
-    post-finalize keyframe values (``ScanSfM.kfs``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_scenes_scan(mesh=...): scene sharding over several cards "
-            "is not ported yet; see ROADMAP.md, Queue 1 item 3")
+    post-finalize keyframe values (``ScanSfM.kfs``).  Under a mesh every
+    field but two holds all S scenes on every rank (gathered as numpy
+    over the ``scene`` group); ``timers`` are this rank's, and ``views``
+    holds this rank's scenes' views and ``None`` elsewhere: the one place
+    where the layout differs from the JAX twin's single controller (a
+    view holds the scene's device carry, which stays on its rank)."""
+    n = frames or min(len(d) for d in datasets)
+    if mesh is None:
+        return _run_scenes_scan(
+            datasets, cfg, n, chunk, p_cap, p_ba, seed, images, gated,
+            out_dirs, checkpoint_path, checkpoint_every, resume,
+            resolve(device), _pri_source)
+    dev = rank_device(mesh, device)
+    sc = local_scenes(mesh, len(datasets))
+    c = mesh.get_local_rank("scene")
+    writer = mesh.get_local_rank("hyp") == 0
+
+    def mine(xs):
+        return None if xs is None else list(xs)[sc.start:sc.stop]
+
+    res = _run_scenes_scan(
+        mine(datasets), cfg, n, chunk, p_cap, p_ba, seed, mine(images),
+        gated, mine(out_dirs) if writer else None,
+        None if checkpoint_path is None else _scene_path(checkpoint_path, c),
+        checkpoint_every if writer else 0, resume, dev, _pri_source,
+        scene0=sc.start)
+    parts = gather_scenes(mesh, {k: res[k] for k in _GATHERED})
+    out = {k: [x for p in parts for x in p[k]] for k in _GATHERED}
+    for k in ("n_keyframes", "n_points", "metrics"):
+        out[k] = np.concatenate([p[k] for p in parts])
+    views = [None] * len(datasets)
+    views[sc.start:sc.stop] = res["views"]
+    return {"timers": res["timers"], **out, "views": views}
+
+
+def _run_scenes_scan(datasets, cfg: SystemConfig, n: int, chunk: int,
+                     p_cap: int, p_ba: int, seed, images, gated: bool,
+                     out_dirs, checkpoint_path, checkpoint_every: int,
+                     resume: bool, dev: torch.device, pri_source,
+                     scene0: int = 0):
+    """``run_scenes_scan`` of the scenes ``datasets`` on ``dev`` (without
+    a mesh: all of them).  ``scene0``: the global index of the first, which
+    sets the scenes' draws (``scene_seed``, ``pri_source``)."""
     from sfm_tpu_torch.utils import checkpoint as ckpt
 
-    dev = resolve(device)
     S = len(datasets)
     # host-side loop verification, as the JAX twin forces: there a device
     # verification under vmap would run for every scene on every keyframe
     if cfg.loop.enabled and cfg.loop.device_verify:
         cfg = dataclasses.replace(
             cfg, loop=dataclasses.replace(cfg.loop, device_verify=False))
-    n = frames or min(len(d) for d in datasets)
     if images is None:
         images = [[d.load_gray(i) for i in range(n)] for d in datasets]
     base = cfg.ransac.seed if seed is None else seed
@@ -328,7 +388,7 @@ def run_scenes_scan(datasets, cfg: SystemConfig, frames: int | None = None,
                                  for s in range(S)])
             carries = _bootstrap_scenes(
                 cfg, kf_cap, p_cap, imgs0, 0,
-                [scene_seed(base, s) for s in range(S)])
+                [scene_seed(base, scene0 + s) for s in range(S)])
         for v, c in zip(views, carries):
             v.carry = c
         H, W = np.asarray(images[0][0]).shape
@@ -353,12 +413,14 @@ def run_scenes_scan(datasets, cfg: SystemConfig, frames: int | None = None,
 
         starts = list(range(1, n, chunk))
         run = _run_chunk_scenes_gated if gated else _run_chunk_scenes
+        pri_for = None if pri_source is None else (
+            lambda s, i: pri_source(scene0 + s, i))
         nxt = _assemble(starts[start_ci]) if starts[start_ci:] else None
         for ci in range(start_ci, len(starts)):
             t0 = time.perf_counter()
             imgs_t, idxs, fvalid = nxt
             _, ys = run(cfg, p_ba, Kf, carries, imgs_t, idxs, fvalid,
-                        pri_for=_pri_source)
+                        pri_for=pri_for)
             if ci + 1 < len(starts):
                 nxt = _assemble(starts[ci + 1])
             ys_c = ys.cpu().numpy().astype(np.float64)  # the chunk's pull

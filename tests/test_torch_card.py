@@ -198,3 +198,91 @@ def test_torch_disparity_on_card_matches_cpu(rng):
     same = (np.rint(dc) == np.rint(dg)) | (np.abs(dc - dg) <= 1e-3)
     assert same[both].mean() >= 0.99
     assert np.percentile(np.abs(dc - dg)[both], 99) <= 0.05
+
+
+def _scene_step_rank(d: dict) -> dict:
+    """Rank 0 of a one-rank NCCL group: ``make_scene_step`` on two scenes,
+    and the same stages called on the same tensors without the group.
+    Returns, per output, whether the two agree bit for bit."""
+    from sfm_tpu_torch.config import KLTConfig
+    from sfm_tpu_torch.models import tracker
+    from sfm_tpu_torch.ops import epipolar
+    from sfm_tpu_torch.parallel import mesh as mesh_lib, multiscene
+
+    m = mesh_lib.make_mesh(1, device="cuda")
+    dev = mesh_lib.rank_device(m, "cuda")
+    cuda = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    kcfg = KLTConfig(max_tracks=d["pos"].shape[1], min_tracks=8,
+                     pyr_levels=2, win_radius=3, iters=6)
+    pyr0 = tuple(map(cuda, d["pyr0"]))
+    pyr1 = tuple(map(cuda, d["pyr1"]))
+    S, T = d["pos"].shape[:2]
+    state = tracker.TrackerState(
+        pos=cuda(d["pos"]), valid=torch.ones((S, T), dtype=torch.bool,
+                                             device=dev),
+        ids=torch.arange(T, dtype=torch.int32, device=dev).repeat(S, 1),
+        next_id=torch.full((S,), T, dtype=torch.int32, device=dev))
+    prob = ba.BAProblem(**{k: cuda(v) for k, v in d["prob"].items()})
+    K, pri = cuda(d["K"]), cuda(d["pri"])
+    step = multiscene.make_scene_step(m, kcfg, num_hypotheses=pri.shape[1])
+    with torch.no_grad():
+        new_state, rp, ba_out, metrics = step(pri, K, pyr0, pyr1, state,
+                                              prob)
+        new, ok = multiscene.batched_lk(pyr0, pyr1, state.pos, state.valid,
+                                        2, 6, 3, device=dev)
+        matched = state.valid & ok
+        rp1 = multiscene.batched_two_view(
+            pri, epipolar.normalize_by_K(K, state.pos),
+            epipolar.normalize_by_K(K, new), matched,
+            num_hypotheses=pri.shape[1], min_inliers=8)
+        ba1 = multiscene.batched_ba_step(prob, iters=2)
+    out = {"valid": torch.equal(new_state.valid, matched),
+           "pos": torch.equal(new_state.pos[matched], new[matched]),
+           "tracks_alive": int(metrics["tracks_alive"]) == int(matched.sum()),
+           "inliers": int(metrics["inliers"]) == int(rp1.num_inliers.sum()),
+           "ba_cost": torch.equal(metrics["ba_cost"], ba1[3]["cost"].sum())}
+    for k, v in rp._asdict().items():
+        out[f"rp.{k}"] = torch.equal(v, getattr(rp1, k))
+    for k, a, b in zip(("R_wc", "t_wc", "X"), ba_out, ba1[:3]):
+        out[k] = torch.equal(a, b)
+    out["on_card"] = new_state.pos.is_cuda and rp.R.is_cuda
+    return out
+
+
+@pytest.mark.gpu
+def test_torch_scene_step_nccl_one_rank_matches_stages(rng):
+    """``parallel.multiscene.make_scene_step`` in a one-rank NCCL group on
+    cuda:0 (started by ``distributed.launch``), two scenes of 64 tracks on
+    96x128 textures shifted by (1, 2) px, with given draws: the new track
+    table, every ``RelPose`` field, the BA outputs and the three metrics
+    all-reduced over the ``scene`` group are bit for bit those of the same
+    stages (``batched_lk``, ``batched_two_view``, ``batched_ba_step``)
+    called without a group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sfm_tpu_torch.parallel import distributed
+
+    S, T, P, M = 2, 64, 16, 64
+    imgs = np.stack([make_textured(rng, 96, 128) for _ in range(S)])
+    moved = np.roll(imgs, (1, 2), axis=(1, 2))
+    t_wc = np.zeros((S, 2, 3), np.float32)
+    t_wc[:, 1, 0] = 0.5
+    d = dict(
+        pyr0=(imgs, np.ascontiguousarray(imgs[:, ::2, ::2])),
+        pyr1=(moved, np.ascontiguousarray(moved[:, ::2, ::2])),
+        pos=rng.uniform(10, 80, (S, T, 2)).astype(np.float32),
+        K=np.array([[100.0, 0, 64], [0, 100.0, 48], [0, 0, 1]], np.float32),
+        pri=rng.random((S, 64, T)).astype(np.float32),
+        prob=dict(
+            R_wc=np.tile(np.eye(3, dtype=np.float32), (S, 2, 1, 1)),
+            t_wc=t_wc,
+            X=(rng.standard_normal((S, P, 3)) * 0.3
+               + [0, 0, 4.0]).astype(np.float32),
+            cam_idx=np.tile(np.arange(M, dtype=np.int32) % 2, (S, 1)),
+            pid_idx=np.tile(np.arange(M, dtype=np.int32) % P, (S, 1)),
+            obs=np.zeros((S, M, 2), np.float32),
+            obs_valid=np.ones((S, M), bool),
+            point_valid=np.ones((S, P), bool)))
+    (out,) = distributed.launch(_scene_step_rank, 1, (d,), device="cuda",
+                                timeout_s=300.0)
+    assert all(out.values()), {k: v for k, v in out.items() if not v}

@@ -219,13 +219,11 @@ def test_torch_multi_scan_non_keyframe_scene_keeps_its_bits(
 
 
 def test_torch_multi_scan_refuses_what_waits(two_rings):
-    """``mesh=`` (scene sharding) raises with a pointer to the ROADMAP;
-    the default device raises without a card; ``finalize(drained=...)``
+    """The default device raises without a card; ``finalize(drained=...)``
     with pending frames and ``finalize()`` before any frame raise as in
-    the single-scene pipeline."""
+    the single-scene pipeline.  (``mesh=`` runs: see
+    tests/test_torch_batch_runner.py.)"""
     cfg = _cfg(config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ms.run_scenes_scan(two_rings, cfg, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ms.run_scenes_scan(two_rings, cfg)
