@@ -17,13 +17,19 @@ Phases, one JSON line each on standard output:
             it, that the artifacts exist, that the loop closed and that the
             trajectory is right (Sim(3) ATE under 5 % of the trajectory's
             extent);
+  bf16      the same ring and configuration through ScanSfM with
+            SFM_TPU_LK_BF16=1 (the LK pyramids stored in bfloat16: K3's
+            bfloat16 instantiation on the main path), held to the
+            pipeline phase's bars, its ATE beside the float32 run's;
   arms      the tracker's other arms, which run the template-passed-in
             kernel K4 and the one-image gather K5: lk_track_fb on one frame
             pair with SFM_TPU_LK_FUSED_TMPL=0 (held to the default arm), with
             SFM_TPU_LK_FUSED=0, and on a pair of unequal shapes; then an
             8-frame prefix of the ring through ScanSfM with
             SFM_TPU_LK_FUSED_TMPL=0 (K4 and K5 on their path through the
-            system);
+            system), and the same prefix with a second ring beside it
+            through run_scenes_scan (one K4 and two K5 launches per level
+            and direction for both scenes; scene 0 as the one-scene run);
   host      the same ring through the CLI's default pipeline,
             SfMSystem.process / finalize / export (warm-up run, then the
             measured run; the global BA on the AoS path), with its stage
@@ -60,10 +66,13 @@ Phases, one JSON line each on standard output:
             ``run_scenes_scan`` without a mesh, which must give the same
             bits; then ``dryrun.dryrun_multichip(world)``.
 
-The kernels phase also holds the scene-batched launches of K1 and K3 (four
-rendered frames of the ring, S = 4, the multi-scene runner's level-0
-shapes) against four single launches, bit for bit, and each scene against
-the plain version.
+The kernels phase also holds the scene-batched launches of K1, K3, K4 and
+K5 (four rendered frames of the ring, S = 4, the multi-scene runner's
+level-0 shapes) against four single launches, bit for bit, and each scene
+against the plain version (``scenes``); and K2-K5 on bfloat16 storage
+(``bf16``): bit for bit their float32 launches on the images rounded to
+bfloat16, and within the float32 rules against their bfloat16 plain
+versions.
 
 The next-to-last lines are the ``{"kernels": [...]}`` summary and the
 card's name and power limit; the last line is
@@ -120,6 +129,9 @@ GATHER_WIN_OTHER = 39
 # ring (and each one's next frame for K3), the multi-scene phase's S
 S_SCENES = 4
 SCENE_FRAMES = (0, 12, 24, 36)
+# the bf16 checks of K2-K5 (SFM_TPU_LK_BF16=1 storage) draw their inputs
+# from this seed, after every check above, which keep theirs
+BF16_SEED = 10
 
 
 def emit(obj) -> None:
@@ -271,21 +283,29 @@ def gather_widths(margin: int) -> list[tuple[int, int]]:
 def lk_gather_library(img, sx, sy, win: int):
     """The window gather as one PyTorch call on starts already clamped
     into the image (int64): a strided view of every window, then one
-    aten::index.  The yardstick of ``library_ms``; the port never calls
-    it."""
-    return img.unfold(0, win, 1).unfold(1, win, 1)[sy, sx]
+    aten::index.  A stack of S images (S,H,W) with starts (S,T) indexes
+    each scene's own windows.  The yardstick of ``library_ms``; the port
+    never calls it."""
+    d = img.dim() - 2
+    views = img.unfold(d, win, 1).unfold(d + 1, win, 1)
+    if d == 0:
+        return views[sy, sx]
+    scene = torch.arange(img.shape[0], device=img.device)[:, None]
+    return views[scene, sy, sx]
 
 
 def check_lk_gather(dev, rng, aux, pyr0, pyr1) -> dict:
     """K2, bit-exact against slicing on all four levels at every pair of
     ``gather_widths`` with garbage starts; timed at level 0 with the
     pipeline's widths.  The pipeline's pair draws its starts from ``rng``,
-    the others from ``aux``."""
+    the others from ``aux``.  On bfloat16 pyramids, also bit for bit the
+    float32 kernel on the pyramids in float32 (``bit_equal_f32``)."""
     from sfm_tpu_torch.ops.kernels import lk_kernels as lk
 
     P = 2 * RADIUS + 1
     WIN0, WIN = P + 3, P + 2 * lk.MARGIN + 3
-    exact = True
+    bf16 = pyr0[0].dtype == torch.bfloat16
+    exact = same_f32 = True
     for L in range(LEVELS):
         H, W = pyr0[L].shape
         for w0, w1 in gather_widths(lk.MARGIN):
@@ -297,6 +317,11 @@ def check_lk_gather(dev, rng, aux, pyr0, pyr1) -> dict:
             r0, r1 = lk.lk_gather_pair_plain(pyr0[L], s0, w0, pyr1[L], s1,
                                              w1)
             exact &= bool(torch.equal(o0, r0) and torch.equal(o1, r1))
+            if bf16:
+                f0, f1 = lk.lk_gather_pair(pyr0[L].float(), s0, w0,
+                                           pyr1[L].float(), s1, w1)
+                same_f32 &= bool(torch.equal(o0.float(), f0)
+                                 and torch.equal(o1.float(), f1))
             if L == 0 and (w0, w1) == (WIN0, WIN):
                 args = (pyr0[0], s0, WIN0, pyr1[0], s1, WIN)
                 ms = time_ms(lambda: lk.lk_gather_pair(*args))
@@ -307,8 +332,10 @@ def check_lk_gather(dev, rng, aux, pyr0, pyr1) -> dict:
                     lk_gather_library(pyr0[0], *c0, WIN0),
                     lk_gather_library(pyr1[0], *c1, WIN)))
     H, W = pyr0[0].shape
-    out_bytes = T_TRACKS * (WIN0 * WIN0 + WIN * WIN) * 4
-    b_ms, b_by = bound(2 * H * W * 4 + T_TRACKS * 16 + out_bytes, 0.0)
+    es = pyr0[0].element_size()
+    out_bytes = T_TRACKS * (WIN0 * WIN0 + WIN * WIN) * es
+    b_ms, b_by = bound(2 * H * W * es + T_TRACKS * 16 + out_bytes, 0.0)
+    extra = {"bit_equal_f32": same_f32} if bf16 else {}
     return {
         "name": "lk_gather_pair", "route": "cuda",
         "source": "sfm_tpu_torch/csrc/lk_gather_pair.cu",
@@ -316,8 +343,8 @@ def check_lk_gather(dev, rng, aux, pyr0, pyr1) -> dict:
         "shape": [T_TRACKS, WIN0, WIN],
         "widths_checked": gather_widths(lk.MARGIN),
         "max_abs_err": 0.0 if exact else 1.0,
-        "tol": 0.0, "ok": exact, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by,
+        "tol": 0.0, "ok": exact and same_f32, **extra, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         # no one call gathers two images' windows
         "library_ms": None, "library_two_calls_ms": two_calls_ms,
     }
@@ -335,15 +362,17 @@ def k3_level(pyr0, pyr1, L, p, v, iters, which, radius=RADIUS):
                              iters, radius, 1e-4)
 
 
-def k4_inputs(pyr0, pyr1, L, p, v, dtype=torch.float32, radius=RADIUS):
+def k4_inputs(pyr0, pyr1, L, p, v, dtype=None, radius=RADIUS):
     """K4's inputs as the template-passed-in arm makes them: the search
     windows, the template patch and the base (window gathers by slicing,
-    which K5 matches bit for bit)."""
+    which K5 matches bit for bit).  The windows keep the pyramids' storage
+    dtype unless ``dtype`` is given (float64 for "plain64")."""
     from sfm_tpu_torch.ops.kernels import lk_kernels as lk
 
     P = 2 * radius + 1
-    img0, img1 = pyr0[L].to(dtype), pyr1[L].to(dtype)
-    p, v = p.to(dtype), v.to(dtype)
+    img0, img1 = pyr0[L], pyr1[L]
+    if dtype is not None:
+        img0, img1, p, v = (x.to(dtype) for x in (img0, img1, p, v))
     o0 = p - radius
     blk0, a0 = lk._load_blocks(img0, o0, P, 0)
     tmpl = lk.template_patch(blk0, a0, o0, P)
@@ -356,7 +385,7 @@ def k4_level(pyr0, pyr1, L, p, v, iters, which, radius=RADIUS):
     ("plain") or float64 ("plain64"), on inputs made at (p, v)."""
     from sfm_tpu_torch.ops.kernels import lk_kernels as lk
 
-    dtype = torch.float64 if which == "plain64" else torch.float32
+    dtype = torch.float64 if which == "plain64" else None
     blk1, tmpl, base, v = k4_inputs(pyr0, pyr1, L, p, v, dtype, radius)
     fn = lk.lk_level_tmpl if which == "kernel" else lk.lk_level_tmpl_plain
     return fn(blk1, tmpl, base, v, iters, 1e-4)
@@ -546,14 +575,15 @@ def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level, radius=RADIUS,
     # P^2 map, which K4 is given
     n_map, n_px = (P + 2) * (P + 2), P * P
     flops = T * ITERS * (n_map * 7 + n_px * 15)
+    es = pyr0[0].element_size()  # 4 float32, 2 bfloat16 storage
     if k4:
         # in: the search windows, the templates, base and flow; out: flow
-        b_ms, b_by = bound(T * ((WIN * WIN + n_px) * 4 + 24), flops)
+        b_ms, b_by = bound(T * (WIN * WIN * es + n_px * 4 + 24), flops)
         ident = {"name": "lk_level_tmpl",
                  "source": "sfm_tpu_torch/csrc/lk_level_tmpl.cu",
                  "replaces": "sfm_tpu/ops/pallas/lk_iter_kernel.py:184"}
     else:
-        b_ms, b_by = bound(2 * H * W * 4 + T * 24, flops + T * n_px * 7)
+        b_ms, b_by = bound(2 * H * W * es + T * 24, flops + T * n_px * 7)
         ident = {"name": "lk_level_fused",
                  "source": "sfm_tpu_torch/csrc/lk_level_fused.cu",
                  "replaces": "sfm_tpu/ops/pallas/lk_iter_kernel.py:246 + "
@@ -594,12 +624,14 @@ def check_lk_gather1(dev, rng, pyr1) -> dict:
     """K5, the one-image gather, bit-exact against slicing on all four
     levels at every width of ``gather_widths`` with garbage starts; timed at
     level 0 with the search window, beside ``lk_gather_library`` on the
-    same starts."""
+    same starts.  On a bfloat16 pyramid, also bit for bit the float32
+    kernel on the pyramid in float32 (``bit_equal_f32``)."""
     from sfm_tpu_torch.ops.kernels import lk_kernels as lk
 
     WIN = 2 * RADIUS + 1 + 2 * lk.MARGIN + 3
     widths = sorted({w for pair in gather_widths(lk.MARGIN) for w in pair})
-    exact = True
+    bf16 = pyr1[0].dtype == torch.bfloat16
+    exact = same_f32 = True
     for L in range(LEVELS):
         H, W = pyr1[L].shape
         for win in widths:
@@ -608,6 +640,9 @@ def check_lk_gather1(dev, rng, pyr1) -> dict:
             torch.cuda.synchronize()
             exact &= bool(torch.equal(out, lk.lk_gather_plain(pyr1[L], st,
                                                               win)))
+            if bf16:
+                same_f32 &= bool(torch.equal(
+                    out.float(), lk.lk_gather(pyr1[L].float(), st, win)))
             if L == 0 and win == WIN:
                 ms = time_ms(lambda: lk.lk_gather(pyr1[0], st, WIN))
                 plain_ms = time_ms(lambda: lk.lk_gather_plain(pyr1[0], st,
@@ -617,15 +652,18 @@ def check_lk_gather1(dev, rng, pyr1) -> dict:
                     lambda: lk_gather_library(pyr1[0], sx, sy, WIN))
     # the image read once, the starts, every window written once
     H, W = pyr1[0].shape
-    b_ms, b_by = bound(H * W * 4 + T_TRACKS * 8 + T_TRACKS * WIN * WIN * 4,
+    es = pyr1[0].element_size()
+    b_ms, b_by = bound(H * W * es + T_TRACKS * 8 + T_TRACKS * WIN * WIN * es,
                        0.0)
+    extra = {"bit_equal_f32": same_f32} if bf16 else {}
     return {
         "name": "lk_gather", "route": "cuda",
         "source": "sfm_tpu_torch/csrc/lk_gather_pair.cu",
         "replaces": "sfm_tpu/ops/pallas/block_gather_kernel.py:133",
         "shape": [T_TRACKS, WIN], "widths_checked": widths,
         "max_abs_err": 0.0 if exact else 1.0,
-        "tol": 0.0, "ok": exact, "ms": ms, "plain_ms": plain_ms,
+        "tol": 0.0, "ok": exact and same_f32, **extra, "ms": ms,
+        "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
     }
 
@@ -669,11 +707,38 @@ def check_shi_tomasi_scenes(dev, frames_u8, row) -> dict:
     return row
 
 
-def check_lk_level_scenes(dev, pairs, row) -> dict:
+def scene_lk_inputs(dev, pairs):
+    """The multi-scene runner's level-0 LK inputs on S rendered frame
+    pairs: the stacked level-0 images (S,H,W), each scene's 2200 bootstrap
+    corners of its first frame (S,T,2) and the level-0 flow from the plain
+    version's pass over levels 3..1 (S,T,2)."""
+    from sfm_tpu_torch.models import tracker
+    from sfm_tpu_torch.ops import image as im
+    from sfm_tpu_torch.ops.kernels import lk_kernels as lk
+
+    kcfg = smoke_config().klt
+    pyrs = [[im.build_pyramid(torch.as_tensor(f, device=dev)
+                              .to(torch.float32), LEVELS) for f in pair]
+            for pair in pairs]
+    img0 = torch.stack([p[0][0] for p in pyrs]).contiguous()
+    img1 = torch.stack([p[1][0] for p in pyrs]).contiguous()
+    p0 = torch.stack([tracker.bootstrap(x, kcfg, device=dev).pos
+                      for x in img0])
+    v0 = []
+    for s in range(len(pairs)):
+        v = torch.zeros_like(p0[s])
+        for L in range(LEVELS - 1, 0, -1):
+            v = 2.0 * lk.lk_level_plain(
+                pyrs[s][0][L].contiguous(), pyrs[s][1][L].contiguous(),
+                p0[s] / 2 ** L, v, ITERS, RADIUS, 1e-4)
+        v0.append(v)
+    return img0, img1, p0, torch.stack(v0)
+
+
+def check_lk_level_scenes(dev, inputs, row) -> dict:
     """K3 with a scene axis: one launch over S rendered frame pairs at
-    level 0 (each scene's 2200 bootstrap corners of its first frame, the
-    level-0 flow from the plain version's pass over levels 3..1, so the
-    runner's launch) against S single launches, bit for bit; and each
+    level 0 (``scene_lk_inputs``, the runner's launch) against S single
+    launches, bit for bit; and each
     scene against the plain version under ``check_lk_level``'s rule for
     border tracks, applied to every track: tracks the plain version's own
     perturbations (float64, transposed, one rounding further) move by
@@ -687,30 +752,12 @@ def check_lk_level_scenes(dev, pairs, row) -> dict:
     ``max_abs_err_interior_stable`` and ``max_abs_err_interior_all`` print
     the interior's worst with and without the split.)  Timed beside the S
     single launches.  Added to ``row`` (K3's) as ``scenes``."""
-    from sfm_tpu_torch.models import tracker
-    from sfm_tpu_torch.ops import image as im
     from sfm_tpu_torch.ops.kernels import lk_kernels as lk
 
-    kcfg = smoke_config().klt
     P = 2 * RADIUS + 1
     WIN = P + 2 * lk.MARGIN + 3
-    pyrs = [[im.build_pyramid(torch.as_tensor(f, device=dev)
-                              .to(torch.float32), LEVELS) for f in pair]
-            for pair in pairs]
-    img0 = torch.stack([p[0][0] for p in pyrs]).contiguous()
-    img1 = torch.stack([p[1][0] for p in pyrs]).contiguous()
+    img0, img1, p0, v0 = inputs
     S, H, W = img0.shape
-    p0 = torch.stack([tracker.bootstrap(x, kcfg, device=dev).pos
-                      for x in img0])
-    v0 = []
-    for s in range(S):
-        v = torch.zeros_like(p0[s])
-        for L in range(LEVELS - 1, 0, -1):
-            v = 2.0 * lk.lk_level_plain(
-                pyrs[s][0][L].contiguous(), pyrs[s][1][L].contiguous(),
-                p0[s] / 2 ** L, v, ITERS, RADIUS, 1e-4)
-        v0.append(v)
-    v0 = torch.stack(v0)
 
     def level(a, b, p, v, which):
         if which == "kernel":
@@ -776,6 +823,195 @@ def check_lk_level_scenes(dev, pairs, row) -> dict:
     return row
 
 
+def check_lk_tmpl_scenes(dev, inputs, row) -> dict:
+    """K4 with a scene axis: arm (b)'s level-0 launch over the S rendered
+    frame pairs of ``scene_lk_inputs`` (its windows from one K5 launch a
+    window set and the template built over the stack, as ops/klt does)
+    against S single launches on the same inputs, bit for bit; and against
+    the plain version on the stack: every flow finite and the median under
+    1e-5 px (the largest difference and the tracks beyond 1e-3 px are
+    printed: on rendered frames some tracks do not converge, see
+    ``check_lk_level_scenes``).  Timed beside the S single launches.
+    Added to ``row`` (K4's) as ``scenes``."""
+    from sfm_tpu_torch.ops.kernels import lk_kernels as lk
+
+    P = 2 * RADIUS + 1
+    WIN = P + 2 * lk.MARGIN + 3
+    img0, img1, p0, v0 = inputs
+    S, T = p0.shape[:2]
+    o0 = p0 - RADIUS
+    blk0, a0 = lk._load_blocks(img0, o0, P, 0, lk.lk_gather)
+    tmpl = lk.template_patch(blk0, a0, o0, P)
+    blk1, a1 = lk._load_blocks(img1, p0 + v0 - RADIUS, P, lk.MARGIN,
+                               lk.lk_gather)
+    base = o0 - a1
+
+    def launch():
+        return lk.lk_level_tmpl(blk1, tmpl, base, v0, ITERS, 1e-4)
+
+    def singles():
+        return [lk.lk_level_tmpl(blk1[s], tmpl[s], base[s], v0[s], ITERS,
+                                 1e-4) for s in range(S)]
+
+    def plain():
+        return lk.lk_level_tmpl_plain(blk1, tmpl, base, v0, ITERS, 1e-4)
+    out = launch()
+    single = torch.stack(singles())
+    torch.cuda.synchronize()
+    same = bool(torch.equal(bits(out), bits(single)))
+    d = (out - plain()).abs().amax(-1)
+    finite = bool(torch.isfinite(out).all())
+    med = float(d.median())
+    n_map, n_px = (P + 2) * (P + 2), P * P
+    b_ms, b_by = bound(S * T * ((WIN * WIN + n_px) * 4 + 24),
+                       S * T * ITERS * (n_map * 7 + n_px * 15))
+    row["scenes"] = {
+        "shape": [S, T, P, WIN, ITERS], "bit_equal_singles": same,
+        "max_abs_err": float(d.max()), "n_over_1e-3": int((d > 1e-3).sum()),
+        "median_abs_err": med, "tol_median": 1e-5, "finite": finite,
+        "ok": same and finite and med < 1e-5,
+        "ms": time_ms(launch), "ms_singles": time_ms(singles),
+        "plain_ms": time_ms(plain, n=3, warm=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    row["ok"] = row["ok"] and row["scenes"]["ok"]
+    return row
+
+
+def check_lk_gather_scenes(dev, inputs, row) -> dict:
+    """K5 with a scene axis: the search windows of arm (b)'s level-0 launch
+    over the S rendered frame pairs of ``scene_lk_inputs`` in one launch,
+    each scene clamped against its own image, against S single launches
+    and the plain version, both bit for bit; timed beside the S single
+    launches and beside ``lk_gather_library`` on the stack (which must
+    give the same windows).  Then arm (c) (SFM_TPU_LK_FUSED=0: these
+    windows and the plain iteration loop) over the stack against each
+    scene's own call, bit for bit (``arm_c_bit_equal_singles``): the
+    loop's sums are PyTorch reductions, whose launch shape depends on the
+    number of tracks.  Added to ``row`` (K5's) as ``scenes``."""
+    from sfm_tpu_torch.ops import klt
+    from sfm_tpu_torch.ops.kernels import lk_kernels as lk
+
+    WIN = 2 * RADIUS + 1 + 2 * lk.MARGIN + 3
+    img0, img1, p0, v0 = inputs
+    S, H, W = img1.shape
+    T = p0.shape[1]
+    st = lk.window_start(p0 + v0 - RADIUS, lk.MARGIN + 1, H, W,
+                         WIN).to(torch.int32)
+    sx, sy = lk._clamp_starts(st, H, W, WIN)
+
+    def launch():
+        return lk.lk_gather(img1, st, WIN)
+
+    def singles():
+        return [lk.lk_gather(img1[s], st[s], WIN) for s in range(S)]
+
+    def library():
+        return lk_gather_library(img1, sx, sy, WIN)
+    out = launch()
+    single = torch.stack(singles())
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out, single))
+    exact = bool(torch.equal(out, lk.lk_gather_plain(img1, st, WIN)))
+    same_library = bool(torch.equal(out, library()))
+
+    def arm_c(a, b, p, v):
+        return klt._lk_level(a, b, p, v, ITERS, RADIUS, 1e-4)
+    stacked, per = with_env({"SFM_TPU_LK_FUSED": "0"}, lambda: (
+        arm_c(img0, img1, p0, v0),
+        torch.stack([arm_c(img0[s], img1[s], p0[s], v0[s])
+                     for s in range(S)])))
+    arm_c_same = bool(torch.equal(bits(stacked), bits(per)))
+    b_ms, b_by = bound(S * (H * W * 4 + T * 8 + T * WIN * WIN * 4), 0.0)
+    row["scenes"] = {
+        "shape": [S, T, WIN], "bit_equal_singles": same,
+        "library_bit_equal": same_library,
+        "arm_c_bit_equal_singles": arm_c_same,
+        "max_abs_err": 0.0 if exact else 1.0, "tol": 0.0,
+        "ok": same and exact and same_library and arm_c_same,
+        "ms": time_ms(launch), "ms_singles": time_ms(singles),
+        "plain_ms": time_ms(lambda: lk.lk_gather_plain(img1, st, WIN)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(library),
+    }
+    row["ok"] = row["ok"] and row["scenes"]["ok"]
+    return row
+
+
+# what a ``bf16`` sub-dict of a kernel row keeps of its check's result
+BF16_KEYS = ("ok", "bit_equal_f32", "max_abs_err", "tol",
+             "max_abs_err_border", "tol_border", "max_abs_err_step",
+             "max_step_excess", "border_far", "border_far_by",
+             "median_abs_err", "widths_checked", "ms", "ms_levels",
+             "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "library_two_calls_ms")
+
+
+def bf16_pyramid(pyr):
+    return [p.to(torch.bfloat16) for p in pyr]
+
+
+def add_bf16(row, res) -> dict:
+    row["bf16"] = {k: res[k] for k in BF16_KEYS if k in res}
+    row["ok"] = row["ok"] and res["ok"]
+    return row
+
+
+def check_lk_level_bf16(dev, pyr0, pyr1, level, row) -> dict:
+    """K3 (or, with ``level=k4_level``, K4) on bfloat16 storage
+    (SFM_TPU_LK_BF16=1) at the main path's shapes: ``check_lk_level``, its
+    rules, tolerances and timing, on the pyramids stored in bfloat16
+    against the plain version on the same storage (which upcasts at its
+    bilinear reads); then on all four levels, with 40 % NaN positions, the
+    bfloat16 launch against the float32 launch on the pyramids rounded to
+    bfloat16, bit for bit (``bit_equal_f32``).  Inputs from BF16_SEED.
+    Added to ``row`` as ``bf16``."""
+    from sfm_tpu_torch.ops.kernels import lk_kernels as lk
+
+    rng = np.random.default_rng(BF16_SEED)
+    b0, b1 = bf16_pyramid(pyr0), bf16_pyramid(pyr1)
+    res = check_lk_level(dev, rng, b0, b1, level)
+    r0, r1 = [p.float() for p in b0], [p.float() for p in b1]
+    WIN = 2 * RADIUS + 1 + 2 * lk.MARGIN + 3
+    same = True
+    for L in range(LEVELS):
+        H, W = pyr0[L].shape
+        pts = level_points(rng, H, W, T_TRACKS, WIN)
+        pts[rng.random(T_TRACKS) < 0.4] = np.nan
+        v0 = (np.array(SHIFT_XY, np.float32) / 2 ** L
+              + rng.uniform(-0.7, 0.7, (T_TRACKS, 2))).astype(np.float32)
+        p = torch.as_tensor(pts, device=dev)
+        v = torch.as_tensor(v0, device=dev)
+        same &= bool(torch.equal(
+            bits(level(b0, b1, L, p, v, ITERS, "kernel")),
+            bits(level(r0, r1, L, p, v, ITERS, "kernel"))))
+    res["bit_equal_f32"] = same
+    res["ok"] = res["ok"] and same
+    return add_bf16(row, res)
+
+
+def template_args(rest: str) -> list[str]:
+    """The template arguments of a mangled kernel name's ``I...E`` part:
+    integer literals (``Li13E``), ``float`` (``f``) and named types
+    (length-prefixed, ``13__nv_bfloat16``)."""
+    import re
+
+    args = []
+    i = 1 if rest.startswith("I") else len(rest)
+    while i < len(rest) and rest[i] != "E":
+        if (m := re.match(r"L[a-z](-?\d+)E", rest[i:])):
+            args.append(m.group(1))
+        elif (m := re.match(r"(\d+)", rest[i:])):
+            k = m.end() + int(m.group(1))
+            args.append(rest[i + m.end():i + k])
+            i += k
+            continue
+        else:
+            m = re.match(r".", rest[i:])
+            args.append({"f": "float"}.get(m.group(), m.group()))
+        i += m.end()
+    return args
+
+
 def ptxas_summary(log: str) -> list[dict]:
     """Registers and spilled bytes of each kernel from ``nvcc -Xptxas
     -v``'s log, the kernel named as base<template argument>."""
@@ -791,8 +1027,7 @@ def ptxas_summary(log: str) -> list[dict]:
             while (n := re.match(r"\d+", rest)):
                 k = n.end() + int(n.group())
                 name, rest = rest[n.end():k], rest[k:]
-            targ = re.match(r"I((?:L[a-z]-?\d+E)+)E", rest)
-            args = re.findall(r"L[a-z](-?\d+)E", targ.group(1)) if targ else []
+            args = template_args(rest)
             out.append({"fn": name + (f"<{','.join(args)}>" if args else ""),
                         "registers": None, "spill_bytes": None})
             continue
@@ -824,7 +1059,17 @@ def phase_kernels(dev, frame0, scene_pairs) -> list[dict]:
             rows[i] = check_lk_level_radii(dev, pyr0, pyr1, level, rows[i])
         # the scene-batched launches of the multi-scene runner
         check_shi_tomasi_scenes(dev, [a for a, _ in scene_pairs], rows[0])
-        check_lk_level_scenes(dev, scene_pairs, rows[2])
+        scene_inputs = scene_lk_inputs(dev, scene_pairs)
+        check_lk_level_scenes(dev, scene_inputs, rows[2])
+        check_lk_tmpl_scenes(dev, scene_inputs, rows[3])
+        check_lk_gather_scenes(dev, scene_inputs, rows[4])
+        # bfloat16 storage (SFM_TPU_LK_BF16=1), inputs of their own
+        check_lk_level_bf16(dev, pyr0, pyr1, k3_level, rows[2])
+        check_lk_level_bf16(dev, pyr0, pyr1, k4_level, rows[3])
+        g = np.random.default_rng(BF16_SEED + 1)
+        b0, b1 = bf16_pyramid(pyr0), bf16_pyramid(pyr1)
+        add_bf16(rows[1], check_lk_gather(dev, g, g, b0, b1))
+        add_bf16(rows[4], check_lk_gather1(dev, g, b1))
     for r in rows:
         r["kernel_ms"] = r["ms"]
     return rows
@@ -1014,6 +1259,56 @@ def phase_pipeline(dev) -> tuple[dict, dict, tuple]:
     return line, counts, (ds.K, s.kfs[0], s.map_xyz)
 
 
+def phase_bf16(dev, ate_f32: float) -> tuple[dict, dict]:
+    """ring47_full (the pipeline phase's ring and configuration, not cut)
+    through ScanSfM with SFM_TPU_LK_BF16=1: both LK pyramids stored in
+    bfloat16, so every K3 launch is its bfloat16 instantiation (counted by
+    ``lk_kernels.bf16_launches``).  One run, after the pipeline phase's
+    two (first-call costs paid); launch counts reset just before it and
+    read just after.  Held to the pipeline phase's bars (ATE under 5 %,
+    >= 30 keyframes, > 2000 map points, a loop edge, K3 launches by the
+    formula); its ATE is printed beside the float32 run's."""
+    from sfm_tpu_torch.ops.kernels import lk_kernels as lk
+
+    with tempfile.TemporaryDirectory(prefix="sfm_bf16_") as tmp:
+        tmp = Path(tmp)
+        ds, frames, names = ring_dataset(tmp)
+        reset_launches()
+        n16 = lk.bf16_launches
+        s, info, dt, dt_frames = with_env(
+            {"SFM_TPU_LK_BF16": "1"},
+            lambda: run_pipeline(dev, ds.K, frames, names, tmp / "out"))
+        counts = read_launches()
+        n16 = lk.bf16_launches - n16
+        ratio = ate_ratio(s.kfs, ds)
+    n_kf, n_pts = len(s.kfs), len(s.map_xyz)
+    loops = [(e.i, e.j) for e in s.edges if e.is_loop]
+    expect_k3 = (FRAMES - 1 + s.loop_verifications) * LEVELS * 2
+    lk_total = sum(v for k, v in counts.items() if k != "shi_tomasi_score")
+    checks = {
+        "k3_launches": counts["lk_level_fused"] == expect_k3,
+        "lk_all_bf16": n16 == lk_total == counts["lk_level_fused"],
+        "k1_launches": counts["shi_tomasi_score"] >= 1,
+        "keyframes": n_kf >= 30,
+        "map_points": n_pts > 2000,
+        "loop_edges": len(loops) >= 1,
+        "finite": bool(np.isfinite(np.stack([k.center for k in s.kfs])).all()
+                       and np.isfinite(s.map_xyz).all()),
+        "ate": ratio < 0.05,
+    }
+    line = {
+        "phase": "bf16", "env": {"SFM_TPU_LK_BF16": "1"}, "frames": FRAMES,
+        "keyframes": n_kf, "map_points": n_pts, "loop_edges": loops,
+        "loop_verifications": s.loop_verifications,
+        "ate_ratio": ratio, "ate_ratio_f32": ate_f32,
+        "wall_s": dt, "fps": FRAMES / dt, "wall_s_frames": dt_frames,
+        "wall_s_finalize": dt - dt_frames, "launches": counts,
+        "lk_bf16_launches": n16, "checks": checks,
+        "ok": all(checks.values()),
+    }
+    return line, counts
+
+
 # ---------------------------------------------------------------------------
 # phase: arms (K4 and K5 on their paths)
 # ---------------------------------------------------------------------------
@@ -1022,12 +1317,13 @@ def phase_pipeline(dev) -> tuple[dict, dict, tuple]:
 ARM_ENV = ("SFM_TPU_LK_FUSED", "SFM_TPU_LK_FUSED_TMPL")
 
 
-def with_arm(fused: str, tmpl: str, fn):
-    """Run ``fn()`` with the tracker's arm switches set, restoring them."""
+def with_env(env: dict, fn):
+    """Run ``fn()`` with the environment variables ``env`` set, restoring
+    them (the port reads its LK switches at call time)."""
     import os
 
-    old = {k: os.environ.get(k) for k in ARM_ENV}
-    os.environ.update(dict(zip(ARM_ENV, (fused, tmpl))))
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         return fn()
     finally:
@@ -1038,6 +1334,11 @@ def with_arm(fused: str, tmpl: str, fn):
                 os.environ[k] = v
 
 
+def with_arm(fused: str, tmpl: str, fn):
+    """Run ``fn()`` with the tracker's arm switches set, restoring them."""
+    return with_env(dict(zip(ARM_ENV, (fused, tmpl))), fn)
+
+
 def phase_arms(dev) -> tuple[dict, dict]:
     """lk_track_fb on frames 0 -> 1 of the ring through the default arm
     (a), the template-passed-in arm (b: SFM_TPU_LK_FUSED_TMPL=0), the
@@ -1046,10 +1347,19 @@ def phase_arms(dev) -> tuple[dict, dict]:
     frames of the ring through ScanSfM under SFM_TPU_LK_FUSED_TMPL=0, the
     path through the system that runs K4 and K5 (their launch counts are
     reset just before it and read just after).  Arm (b) is held to arm
-    (a) on the interior tracks at K3's interior tolerance."""
+    (a) on the interior tracks at K3's interior tolerance.  Then the
+    multi-scene runner under SFM_TPU_LK_FUSED_TMPL=0 over two scenes of 8
+    frames (the ring above and one of texture seed + 1, as the multiscene
+    phase takes them): one K4 and two K5 launches per level and direction
+    serve both scenes, so the counts are the one-scene run's, and scene 0
+    must match that run (its keyframes and loop edges, centers within
+    1e-5, the multiscene phase's bar)."""
+    import dataclasses
+
     from sfm_tpu_torch.models.scan_pipeline import ScanSfM
     from sfm_tpu_torch.ops import features, image as im, klt
     from sfm_tpu_torch.ops.kernels import lk_kernels as lk
+    from sfm_tpu_torch.parallel.multi_scan import run_scenes_scan
     from sfm_tpu_torch.utils.dataset import TempleRing
     from sfm_tpu_torch.utils.synthetic import generate_dataset
 
@@ -1112,7 +1422,31 @@ def phase_arms(dev) -> tuple[dict, dict]:
         counts = {"lk_level_tmpl": lk.tmpl_launches,
                   "lk_gather": lk.gather1_launches}
         k3_scan = lk.level_launches - k3_before
+
+        # the multi-scene runner on the same arm, two scenes
+        spec1 = short_ring_spec(n_frames)
+        spec1 = dataclasses.replace(spec1, seed=spec1.seed + 1)
+        generate_dataset(Path(tmp) / "scene1", spec1, name_prefix="templeR")
+        ds1 = TempleRing.from_dir(Path(tmp) / "scene1")
+        frames1 = [ds1.load_gray(i) for i in range(n_frames)]
+        k3_before = lk.level_launches
+        lk.tmpl_launches = lk.gather1_launches = 0
+        t0 = time.perf_counter()
+        res = with_arm("1", "0", lambda: run_scenes_scan(
+            [ds, ds1], cfg, frames=n_frames, chunk=n_frames,
+            images=[frames, frames1], device=dev))
+        dt_scenes = time.perf_counter() - t0
+        scene_counts = {"lk_level_tmpl": lk.tmpl_launches,
+                        "lk_gather": lk.gather1_launches}
+        k3_scenes = lk.level_launches - k3_before
     expect_k4 = (n_frames - 1 + s.loop_verifications) * LEVELS * 2
+    host_ver = sum(v.host_verifications for v in res["views"])
+    c_one = np.stack([kf.center for kf in s.kfs])
+    same_kf = (list(res["kf_frames"][0])
+               == [kf.frame_idx for kf in s.kfs])
+    d_centers = (float(np.abs(res["centers"][0] - c_one).max())
+                 if same_kf else float("inf"))
+    scene_loops = [[(e.i, e.j) for e in le] for le in res["loop_edges"]]
     checks = {
         "b_launches": k4_b == 2 * LEVELS and k5_b == 4 * LEVELS,
         "c_launches": k5_c == 4 * LEVELS,
@@ -1124,6 +1458,19 @@ def phase_arms(dev) -> tuple[dict, dict]:
         "scan_k4_launches": counts["lk_level_tmpl"] == expect_k4,
         "scan_k5_launches": counts["lk_gather"] == 2 * expect_k4,
         "scan_no_k3": k3_scan == 0,
+        # one launch per level and direction for both scenes
+        "scenes_k4_launches": scene_counts["lk_level_tmpl"]
+        == (n_frames - 1 + host_ver) * LEVELS * 2
+        == counts["lk_level_tmpl"],
+        "scenes_k5_launches": scene_counts["lk_gather"]
+        == 2 * scene_counts["lk_level_tmpl"] == counts["lk_gather"],
+        "scenes_no_k3": k3_scenes == 0,
+        "scenes_scene0_keyframes_match": same_kf,
+        "scenes_scene0_loop_edges_match": scene_loops[0] == [
+            (e.i, e.j) for e in s.loop_edges],
+        "scenes_scene0_centers_match": d_centers <= 1e-5,
+        "scenes_finite": all(bool(np.isfinite(c).all())
+                             for c in res["centers"]),
     }
     line = {
         "phase": "arms", "tracks": int(valid.sum()),
@@ -1137,8 +1484,19 @@ def phase_arms(dev) -> tuple[dict, dict]:
         "lk_track_fb_launches": {"b": [k4_b, k5_b], "c": [0, k5_c],
                                  "unequal": [k4_u, k5_u]},
         "scan_frames": n_frames, "scan_keyframes": len(s.kfs),
-        "scan_launches": counts, "checks": checks,
-        "ok": all(checks.values()),
+        "scan_launches": counts,
+        "scenes_run": {
+            "scenes": 2, "frames": n_frames, "wall_s": dt_scenes,
+            "keyframes": [int(k) for k in res["n_keyframes"]],
+            "map_points": [int(k) for k in res["n_points"]],
+            "loop_edges": scene_loops,
+            "host_verifications": [v.host_verifications
+                                   for v in res["views"]],
+            "scene0_centers_max_abs_diff": d_centers,
+            "scene0_centers_bit_equal": same_kf and bool(
+                np.array_equal(res["centers"][0], c_one)),
+            "launches": scene_counts},
+        "checks": checks, "ok": all(checks.values()),
     }
     return line, counts
 
@@ -2113,13 +2471,21 @@ def main() -> int:
     if not line["ok"]:
         print("chip_smoke: the pipeline phase failed", file=sys.stderr)
         return 1
+    ate_f32 = line["ate_ratio"]
+    with torch.no_grad():
+        line, bf16_counts = phase_bf16(dev, ate_f32)
+    emit(line)
+    if not line["ok"]:
+        print("chip_smoke: the bf16 phase failed", file=sys.stderr)
+        return 1
     with torch.no_grad():
         line, arm_counts = phase_arms(dev)
     emit(line)
     if not line["ok"]:
         print("chip_smoke: the arms phase failed", file=sys.stderr)
         return 1
-    by_path = {"pipeline": counts, "arms": arm_counts}
+    by_path = {"pipeline": counts, "bf16": bf16_counts, "arms": arm_counts,
+               "arms_scenes": line["scenes_run"]["launches"]}
     for name, phase in (("host", phase_host), ("cli", phase_cli),
                         ("orb", phase_orb), ("orb_host", phase_orb_host),
                         ("multiscene", phase_multiscene)):
@@ -2159,7 +2525,7 @@ def main() -> int:
     extra = ("ms_r2", "max_abs_err_border", "tol_border", "max_abs_err_step",
              "max_step_excess", "tol_step", "border_far", "border_far_by",
              "radii_checked", "widths_checked", "library_two_calls_ms",
-             "launches_by_path", "scenes")
+             "launches_by_path", "scenes", "bf16")
     emit({"kernels": [{k: r[k] for k in keys + extra if k in r}
                       for r in rows]})
     print(smi, flush=True)

@@ -9,8 +9,14 @@
 // larger aligned block: the LK sub-window clamp (lk_level_fused.cu) is
 // relative to this start, so any other anchor shifts which pixels a marginal
 // track converges on.
+//
+// Storage: the LK images and windows are float32 or bfloat16
+// (SFM_TPU_LK_BF16, ops/klt.lk_dtype).  Every kernel reads bfloat16 values
+// into float32 (exact) before any arithmetic, so the sums accumulate in
+// float32 as in the plain version.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,6 +64,57 @@ __device__ __forceinline__ void load_window_async(
         for (int c = lane; c < win; c += 32)
             __pipeline_memcpy_async(dst + r * dst_stride + c,
                                     src + (size_t)r * W + c, sizeof(float));
+}
+
+// The bfloat16 twin: cp.async moves 4, 8 or 16 bytes, not one 2-byte
+// pixel, and the window must land in shared memory as float32.  Each lane
+// loads its pixels and stores them converted (exact); copy_wait() then
+// orders the stores for the warp as for the copies.  (Loading 8 pixels a
+// lane before storing them, all 32 lanes on the window's pixels as one
+// run, gained 0.6 % on an H100; PERF.md, Findings.)
+__device__ __forceinline__ void load_window_async(
+    const __nv_bfloat16* __restrict__ img, int H, int W, int sx, int sy,
+    int win, float* dst, int dst_stride, int lane) {
+    sx = clamp_start(sx, W, win);
+    sy = clamp_start(sy, H, win);
+    const __nv_bfloat16* src = img + (size_t)sy * W + sx;
+#pragma unroll 4
+    for (int r = 0; r < win; ++r)
+        for (int c = lane; c < win; c += 32)
+            dst[r * dst_stride + c] = __bfloat162float(src[(size_t)r * W + c]);
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+
+// Four consecutive stored values at p (4 * sizeof(T)-byte aligned) as
+// float32, in one load.
+__device__ __forceinline__ void load4(const float* p, float e[4]) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    e[0] = w.x;
+    e[1] = w.y;
+    e[2] = w.z;
+    e[3] = w.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float e[4]) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+    e[0] = a.x;
+    e[1] = a.y;
+    e[2] = b.x;
+    e[3] = b.y;
+}
+
+// Calls f((T*)nullptr) with T = __nv_bfloat16 for bf16 != 0, else float:
+// the storage type of an entry point's images or windows.
+template <class F>
+int dispatch_storage(int bf16, F&& f) {
+    return bf16 ? f((__nv_bfloat16*)nullptr) : f((float*)nullptr);
 }
 
 // Waits for this lane's load_window_async copies, then for the warp's.

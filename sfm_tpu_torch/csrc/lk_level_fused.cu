@@ -36,6 +36,13 @@
 // track for track, the bits of S launches over one scene.  A single image
 // pair is the case S = 1 (T_scene = T).
 //
+// Storage (SFM_TPU_LK_BF16; the JAX package's _lk_dtype): the images are
+// float32 or bfloat16, a template parameter of the kernel.  bfloat16 pixels
+// become float32 as they are staged into shared memory
+// (sfm::load_window_async's bfloat16 twin), exactly, so everything after
+// the staging is the float32 kernel's: on bfloat16 images the kernel gives
+// the bits of the float32 kernel on the same images rounded to bfloat16.
+//
 // Arithmetic follows the plain PyTorch version operation for operation
 // (__fmul_rn/__fadd_rn keep the compiler from contracting a*b+c into an fma,
 // which rounds once instead of twice); only the order of the P*P sums
@@ -85,9 +92,9 @@ __host__ __device__ inline int fused_floats_per_track(int P, int margin) {
            sfm::map_floats(P) + P * P;
 }
 
-template <int kP>
-__global__ void lk_level_fused_kernel(const float* __restrict__ img0,
-                                      const float* __restrict__ img1, int H,
+template <int kP, class Img>
+__global__ void lk_level_fused_kernel(const Img* __restrict__ img0,
+                                      const Img* __restrict__ img1, int H,
                                       int W, const float* __restrict__ p0,
                                       const float* __restrict__ v_in, int T,
                                       int T_scene, int radius, int margin,
@@ -149,8 +156,8 @@ __global__ void lk_level_fused_kernel(const float* __restrict__ img0,
     }
 }
 
-template <int kP>
-int launch(const float* img0, const float* img1, int H, int W,
+template <int kP, class Img>
+int launch(const Img* img0, const Img* img1, int H, int W,
            const float* p0, const float* v_in, int T, int T_scene, int radius,
            int margin, int iters, float min_det, float* v_out,
            cudaStream_t stream) {
@@ -159,33 +166,36 @@ int launch(const float* img0, const float* img1, int H, int W,
                          fused_floats_per_track(P, margin) * sizeof(float);
     if (bytes > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            lk_level_fused_kernel<kP>,
+            lk_level_fused_kernel<kP, Img>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
         if (e != cudaSuccess) return (int)e;
     }
     const int blocks = (T + kTracksPerBlock - 1) / kTracksPerBlock;
-    lk_level_fused_kernel<kP><<<blocks, 32 * kTracksPerBlock, bytes,
-                                stream>>>(img0, img1, H, W, p0, v_in, T,
-                                          T_scene, radius, margin, iters,
-                                          min_det, v_out);
+    lk_level_fused_kernel<kP, Img><<<blocks, 32 * kTracksPerBlock, bytes,
+                                   stream>>>(img0, img1, H, W, p0, v_in, T,
+                                             T_scene, radius, margin, iters,
+                                             min_det, v_out);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// img0/img1: S stacked H x W images; p0/v_in/v_out: T = S * T_scene tracks,
-// scene by scene.
+// img0/img1: S stacked H x W images, float32 (bf16 = 0) or bfloat16
+// (bf16 = 1); p0/v_in/v_out: T = S * T_scene float32 tracks, scene by scene.
 extern "C" int sfm_lk_level_fused(const void* img0, const void* img1, int H,
                                   int W, const void* p0, const void* v_in,
                                   int T, int T_scene, int radius, int margin,
                                   int iters, float min_det, void* v_out,
-                                  void* stream) {
+                                  int bf16, void* stream) {
     if (T <= 0) return 0;
     if (T_scene <= 0 || T % T_scene != 0) return (int)cudaErrorInvalidValue;
-    return sfm::dispatch_patch(radius, [&](auto kp) {
-        return launch<decltype(kp)::value>(
-            (const float*)img0, (const float*)img1, H, W, (const float*)p0,
-            (const float*)v_in, T, T_scene, radius, margin, iters, min_det,
-            (float*)v_out, (cudaStream_t)stream);
+    return sfm::dispatch_storage(bf16, [&](auto* img_type) {
+        using Img = std::remove_pointer_t<decltype(img_type)>;
+        return sfm::dispatch_patch(radius, [&](auto kp) {
+            return launch<decltype(kp)::value, Img>(
+                (const Img*)img0, (const Img*)img1, H, W, (const float*)p0,
+                (const float*)v_in, T, T_scene, radius, margin, iters,
+                min_det, (float*)v_out, (cudaStream_t)stream);
+        });
     });
 }

@@ -18,6 +18,14 @@
 // per update, the patch size a template parameter (radius 1..10, other
 // sizes at run time).
 //
+// Storage (SFM_TPU_LK_BF16): the windows are float32 or bfloat16, a
+// template parameter; the template is float32 either way, as in the JAX
+// package's lk_iter_pallas.  bfloat16 windows become float32 as they are
+// staged into shared memory (exact), so the loop is the float32 kernel's.
+//
+// Scene axis: the tracks of S scenes are independent, so a stack of scenes
+// is the wrapper's flattened (S * T) table and needs nothing here.
+//
 // Bound: bytes.  The function's inputs are the windows and templates
 // themselves, T * (WIN^2 + P^2) * 4 B (8.4 MB at T=2200, WIN=28, P=13), plus
 // 24 B per track; its operations are K3's without the template map (one
@@ -36,6 +44,7 @@
 
 #include <stdint.h>
 
+#include "lk_common.cuh"
 #include "lk_iterate.cuh"
 
 namespace {
@@ -47,8 +56,8 @@ __host__ __device__ inline int tmpl_floats_per_track(int P, int WIN) {
     return WIN * sfm::bank_stride(P + 2, WIN) + sfm::map_floats(P) + P * P;
 }
 
-template <int kP>
-__global__ void lk_level_tmpl_kernel(const float* __restrict__ blocks,
+template <int kP, class Blk>
+__global__ void lk_level_tmpl_kernel(const Blk* __restrict__ blocks,
                                      const float* __restrict__ tmpl_in,
                                      const float* __restrict__ base,
                                      const float* __restrict__ v_in, int T,
@@ -66,23 +75,23 @@ __global__ void lk_level_tmpl_kernel(const float* __restrict__ blocks,
     float* B1 = smem + warp * tmpl_floats_per_track(P, WIN);
     float* M = B1 + WIN * WINS;
     float* tmpl = M + sfm::map_floats(P);
-    const float* src = blocks + (size_t)t * WIN * WIN;
-    if ((WIN & 1) == 0 && ((uintptr_t)blocks & 15) == 0) {
-        // WIN even: WIN^2 is a multiple of 4, every window 16-B aligned
-        const float4* src4 = reinterpret_cast<const float4*>(src);
+    const Blk* src = blocks + (size_t)t * WIN * WIN;
+    if ((WIN & 1) == 0 && ((uintptr_t)blocks & (4 * sizeof(Blk) - 1)) == 0) {
+        // WIN even: WIN^2 is a multiple of 4, every window's start aligned
+        // for one load of 4 values (16 B of float32, 8 B of bfloat16)
         for (int q = lane; q < WIN * WIN / 4; q += 32) {
-            const float4 w = src4[q];
+            float e[4];
+            sfm::load4(src + 4 * q, e);
             int r = 4 * q / WIN, c = 4 * q - r * WIN;
-            const float e[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {  // a float4 may end a row
+            for (int k = 0; k < 4; ++k) {  // the 4 values may end a row
                 B1[r * WINS + c] = e[k];
                 if (++c == WIN) { c = 0; ++r; }
             }
         }
     } else {
         for (int i = lane; i < WIN * WIN; i += 32)
-            B1[(i / WIN) * WINS + i % WIN] = src[i];
+            B1[(i / WIN) * WINS + i % WIN] = sfm::to_float(src[i]);
     }
     const float* tsrc = tmpl_in + (size_t)t * P * P;
     for (int i = lane; i < P * P; i += 32) tmpl[i] = tsrc[i];
@@ -98,37 +107,42 @@ __global__ void lk_level_tmpl_kernel(const float* __restrict__ blocks,
     }
 }
 
-template <int kP>
-int launch(const float* blocks, const float* tmpl, const float* base,
+template <int kP, class Blk>
+int launch(const Blk* blocks, const float* tmpl, const float* base,
            const float* v_in, int T, int P, int WIN, int iters,
            float min_det, float* v_out, cudaStream_t stream) {
     const size_t bytes = (size_t)kTracksPerBlock *
                          tmpl_floats_per_track(P, WIN) * sizeof(float);
     if (bytes > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            lk_level_tmpl_kernel<kP>,
+            lk_level_tmpl_kernel<kP, Blk>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
         if (e != cudaSuccess) return (int)e;
     }
     const int nblocks = (T + kTracksPerBlock - 1) / kTracksPerBlock;
-    lk_level_tmpl_kernel<kP><<<nblocks, 32 * kTracksPerBlock, bytes,
-                               stream>>>(blocks, tmpl, base, v_in, T, P, WIN,
-                                         iters, min_det, v_out);
+    lk_level_tmpl_kernel<kP, Blk><<<nblocks, 32 * kTracksPerBlock, bytes,
+                                    stream>>>(blocks, tmpl, base, v_in, T, P,
+                                              WIN, iters, min_det, v_out);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// blocks: T windows, float32 (bf16 = 0) or bfloat16 (bf16 = 1); tmpl,
+// base, v_in, v_out float32.
 extern "C" int sfm_lk_level_tmpl(const void* blocks, const void* tmpl,
                                  const void* base, const void* v_in, int T,
                                  int P, int WIN, int iters, float min_det,
-                                 void* v_out, void* stream) {
+                                 void* v_out, int bf16, void* stream) {
     if (T <= 0) return 0;
-    // an even P has no radius: the run-time-P instantiation takes it
-    return sfm::dispatch_patch((P & 1) ? (P - 1) / 2 : 0, [&](auto kp) {
-        return launch<decltype(kp)::value>(
-            (const float*)blocks, (const float*)tmpl, (const float*)base,
-            (const float*)v_in, T, P, WIN, iters, min_det, (float*)v_out,
-            (cudaStream_t)stream);
+    return sfm::dispatch_storage(bf16, [&](auto* blk_type) {
+        using Blk = std::remove_pointer_t<decltype(blk_type)>;
+        // an even P has no radius: the run-time-P instantiation takes it
+        return sfm::dispatch_patch((P & 1) ? (P - 1) / 2 : 0, [&](auto kp) {
+            return launch<decltype(kp)::value, Blk>(
+                (const Blk*)blocks, (const float*)tmpl, (const float*)base,
+                (const float*)v_in, T, P, WIN, iters, min_det, (float*)v_out,
+                (cudaStream_t)stream);
+        });
     });
 }

@@ -35,13 +35,16 @@ _F = ctypes.c_float
 
 # C signatures of the library's entry points: every pointer and the stream
 # are c_void_p (a bare Python int would be passed as a 32-bit int and cut).
+# The LK entry points take the storage type of their images or windows as
+# the int before the stream: 0 float32, 1 bfloat16.
 _SIGNATURES = {
     "sfm_shi_tomasi": [_P, _I, _I, _I, _I, _P, _P],
-    "sfm_lk_gather_pair": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    "sfm_lk_gather_pair": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I,
+                           _P],
     "sfm_lk_level_fused": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F,
-                           _P, _P],
-    "sfm_lk_gather": [_P, _I, _I, _P, _I, _I, _P, _P],
-    "sfm_lk_level_tmpl": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+                           _P, _I, _P],
+    "sfm_lk_gather": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
+    "sfm_lk_level_tmpl": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _P],
 }
 
 _lib = None

@@ -11,19 +11,31 @@ K3 and K4 in csrc/lk_iterate.cuh.
 The plain versions are the port of the XLA ``fori_loop`` path of
 sfm_tpu/ops/klt._lk_level: ``_load_blocks`` (here a direct window gather
 by index), ``_qf``, ``_bil_t`` and the loop body (``_lk_iterate_plain``,
-shared by the plain versions of K3 and K4).  Block storage is float32 only.
-A wrapper launches its kernel for CUDA tensors (or raises) and takes the
-plain version only for CPU tensors; under the numeric checks
-(``utils.debug``) it checks what its kernel wrote for NaN/Inf.
+shared by the plain versions of K3 and K4).  A wrapper launches its kernel
+for CUDA tensors (or raises) and takes the plain version only for CPU
+tensors; under the numeric checks (``utils.debug``) it checks what its
+kernel wrote for NaN/Inf.
+
+Storage (SFM_TPU_LK_BF16, read by ops/klt.lk_dtype): images and windows
+are float32 or bfloat16; positions, flows, templates and every sum are
+float32.  Each wrapper takes either storage type (both images of one) and
+launches the kernel instantiated for it, and raises ``TypeError`` for any
+other (float16, float64).  The gathers copy bfloat16 windows as they are;
+the plain versions upcast at the four bilinear reads (``_bil_t``), as the
+JAX twin does, and the kernels as they stage a window, so on bfloat16
+images every function gives the bits of its float32 run on the images
+rounded to bfloat16.
 
 Layout: tracks lead — blocks are (T, WIN, WIN), patches (T, P, P).  (The
 JAX twin keeps tracks on the last axis for the TPU's lanes.)
 
-Scene axis: K3 (``lk_level_fused``, and its plain version) also takes a
-stack of scenes, images (S,H,W) with positions and flows (S,T,2), the axis
-the JAX twin gets under ``jax.vmap`` (sfm_tpu/parallel/multi_scan.py).
-The kernel serves the whole stack in one launch; the plain version runs
-scene by scene.
+Scene axis: K3 (``lk_level_fused``, and its plain version), K5
+(``lk_gather``) and K4 (``lk_level_tmpl``) also take a stack of scenes,
+images (S,H,W) with positions and flows (S,T,2) (K4: windows and templates
+(S,T,...)), the axis the JAX twin gets under ``jax.vmap``
+(sfm_tpu/parallel/multi_scan.py).  Each kernel serves the whole stack in
+one launch; K3's plain version runs scene by scene, the other plain
+versions take the stack at once (every track's arithmetic is its own).
 """
 
 from __future__ import annotations
@@ -39,6 +51,24 @@ gather_launches = 0  # launches of the K2 pair gather kernel (plain int)
 level_launches = 0   # launches of the K3 fused level kernel (plain int)
 gather1_launches = 0  # launches of the K5 one-image gather kernel
 tmpl_launches = 0    # launches of the K4 template-passed-in level kernel
+bf16_launches = 0    # of those four, the launches on bfloat16 storage
+
+STORAGE = (torch.float32, torch.bfloat16)  # dtypes of images and windows
+
+
+def _storage_flag(name: str, *imgs) -> int:
+    """The C entry points' storage argument for images (or windows) of one
+    storage dtype: 0 float32, 1 bfloat16; TypeError for anything else."""
+    dt = imgs[0].dtype
+    if dt not in STORAGE or any(x.dtype != dt for x in imgs):
+        raise TypeError(f"{name} takes float32 or bfloat16 images of one "
+                        f"dtype, got {', '.join(str(x.dtype) for x in imgs)}")
+    return int(dt == torch.bfloat16)
+
+
+def _count(bf16: int) -> None:
+    global bf16_launches
+    bf16_launches += bf16
 
 
 # ---------------------------------------------------------------------------
@@ -59,19 +89,24 @@ def window_start(origins, back: int, H: int, W: int, win: int):
 
 
 def _clamp_starts(starts, H: int, W: int, win: int):
-    sx = torch.clamp(starts[:, 0], 0, max(W - win, 0))
-    sy = torch.clamp(starts[:, 1], 0, max(H - win, 0))
+    sx = torch.clamp(starts[..., 0], 0, max(W - win, 0))
+    sy = torch.clamp(starts[..., 1], 0, max(H - win, 0))
     return sx.to(torch.int64), sy.to(torch.int64)
 
 
 def _gather_windows(img, starts, win: int):
     """(T,win,win) windows of ``img`` at integer ``starts`` (T,2) = (x,y),
-    clamped to the image: plain slicing, as one advanced-index gather."""
-    H, W = img.shape
+    clamped to the image: plain slicing, as one advanced-index gather.  A
+    stack of images (S,H,W) with starts (S,T,2) gives (S,T,win,win), each
+    scene's windows of its own image."""
+    H, W = img.shape[-2:]
     sx, sy = _clamp_starts(starts, H, W, win)
     ar = torch.arange(win, device=img.device)
-    rows = (sy[:, None] + ar)[:, :, None]
-    cols = (sx[:, None] + ar)[:, None, :]
+    rows = (sy[..., None] + ar)[..., :, None]
+    cols = (sx[..., None] + ar)[..., None, :]
+    if img.dim() == 3:
+        scene = torch.arange(img.shape[0], device=img.device)
+        return img[scene.view(-1, 1, 1, 1), rows, cols]
     return img[rows, cols]
 
 
@@ -87,12 +122,14 @@ def lk_gather_pair_plain(img0, starts0, win0: int, img1, starts1, win1: int):
             _gather_windows(img1, starts1, win1))
 
 
-def _check_image_pair(img0, img1, win: int, name: str, dims=(2,)):
+def _check_image_pair(img0, img1, win: int, name: str, dims=(2,)) -> int:
+    """Checks two images for a kernel; returns ``_storage_flag``."""
+    bf16 = _storage_flag(name, img0, img1)
     for im_ in (img0, img1):
-        if im_.dtype != torch.float32 or im_.dim() not in dims:
-            raise TypeError(f"{name} takes float32 images of "
+        if im_.dim() not in dims:
+            raise TypeError(f"{name} takes images of "
                             f"{' or '.join(map(str, dims))} dimensions, got "
-                            f"{tuple(im_.shape)} {im_.dtype}")
+                            f"{tuple(im_.shape)}")
         if not im_.is_contiguous():
             raise ValueError(f"{name} needs contiguous images")
     if img0.shape != img1.shape or img0.device != img1.device:
@@ -103,11 +140,12 @@ def _check_image_pair(img0, img1, win: int, name: str, dims=(2,)):
     if H < win or W < win:
         raise ValueError(f"{name}: image {H}x{W} smaller than the "
                          f"{win}-px window")
+    return bf16
 
 
 def _lk_gather_pair_cuda(img0, starts0, win0, img1, starts1, win1):
     global gather_launches
-    _check_image_pair(img0, img1, max(win0, win1), "lk_gather_pair")
+    bf16 = _check_image_pair(img0, img1, max(win0, win1), "lk_gather_pair")
     T = starts0.shape[0]
     for s in (starts0, starts1):
         if (s.dtype != torch.int32 or s.shape != (T, 2)
@@ -116,18 +154,17 @@ def _lk_gather_pair_cuda(img0, starts0, win0, img1, starts1, win1):
                             "(T,2) on the images' device")
     lib = build.load()
     H, W = img0.shape
-    out0 = torch.empty((T, win0, win0), dtype=torch.float32,
-                       device=img0.device)
-    out1 = torch.empty((T, win1, win1), dtype=torch.float32,
-                       device=img0.device)
+    out0 = torch.empty((T, win0, win0), dtype=img0.dtype, device=img0.device)
+    out1 = torch.empty((T, win1, win1), dtype=img0.dtype, device=img0.device)
     with torch.cuda.device(img0.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.sfm_lk_gather_pair(
             img0.data_ptr(), img1.data_ptr(), H, W, starts0.data_ptr(),
             starts1.data_ptr(), T, int(win0), int(win1), out0.data_ptr(),
-            out1.data_ptr(), stream)
+            out1.data_ptr(), bf16, stream)
     build.check_launch(code, "lk_gather_pair")
     gather_launches += 1
+    _count(bf16)
     return debug.check_finite((out0, out1), "lk_gather_pair")
 
 
@@ -145,37 +182,45 @@ def lk_gather_pair(img0, starts0, win0: int, img1, starts1, win1: int):
 
 def lk_gather_plain(img, starts, win: int):
     """(T,win,win) windows of ``img`` at integer starts (T,2) = (x,y),
-    clamped to the image."""
+    clamped to the image; (S,T,win,win) for images (S,H,W) and starts
+    (S,T,2)."""
     return _gather_windows(img, starts, win)
 
 
 def _lk_gather_cuda(img, starts, win):
     global gather1_launches
-    if img.dtype != torch.float32 or img.dim() != 2 or not img.is_contiguous():
-        raise TypeError(f"lk_gather takes one contiguous 2-D float32 image, "
-                        f"got {tuple(img.shape)} {img.dtype}")
-    H, W = img.shape
+    bf16 = _storage_flag("lk_gather", img)
+    if img.dim() not in (2, 3) or not img.is_contiguous():
+        raise TypeError(f"lk_gather takes one contiguous (H,W) image or an "
+                        f"(S,H,W) stack, got {tuple(img.shape)}")
+    H, W = img.shape[-2:]
     if H < win or W < win:
         raise ValueError(f"lk_gather: image {H}x{W} smaller than the "
                          f"{win}-px window")
-    T = starts.shape[0]
-    if (starts.dtype != torch.int32 or starts.shape != (T, 2)
+    lead = tuple(img.shape[:-2])
+    T = starts.shape[-2]
+    if (starts.dtype != torch.int32 or starts.shape != (*lead, T, 2)
             or starts.device != img.device or not starts.is_contiguous()):
-        raise TypeError("lk_gather takes contiguous int32 starts (T,2) on "
-                        "the image's device")
+        raise TypeError("lk_gather takes contiguous int32 starts (T,2), or "
+                        "(S,T,2) for images (S,H,W), on the image's device")
+    S = img.shape[0] if lead else 1
     lib = build.load()
-    out = torch.empty((T, win, win), dtype=torch.float32, device=img.device)
+    out = torch.empty((*lead, T, win, win), dtype=img.dtype,
+                      device=img.device)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sfm_lk_gather(img.data_ptr(), H, W, starts.data_ptr(), T,
-                                 int(win), out.data_ptr(), stream)
+        code = lib.sfm_lk_gather(img.data_ptr(), H, W, starts.data_ptr(),
+                                 S * T, T, int(win), out.data_ptr(), bf16,
+                                 stream)
     build.check_launch(code, "lk_gather")
     gather1_launches += 1
+    _count(bf16)
     return debug.check_finite(out, "lk_gather")
 
 
 def lk_gather(img, starts, win: int):
-    """K5. CUDA tensors -> kernel, CPU tensors -> plain slicing."""
+    """K5, for one image or an (S,H,W) stack with (S,T,2) starts (one
+    launch). CUDA tensors -> kernel, CPU tensors -> plain slicing."""
     if img.is_cuda:
         return _lk_gather_cuda(img, starts, win)
     return lk_gather_plain(img, starts, win)
@@ -190,7 +235,7 @@ def _load_blocks(img, origins, P: int, margin: int, gather=_gather_windows):
     """One contiguous square block per track around each float patch
     origin. Returns (blocks (T,WIN,WIN), anchors (T,2) float top-left)."""
     WIN = P + 2 * margin + 3  # +1 bilinear, +2 gradient shifts
-    H, W = img.shape
+    H, W = img.shape[-2:]
     if H < WIN or W < WIN:
         raise ValueError(f"image {H}x{W} smaller than the {WIN}-px LK block")
     start = window_start(origins, margin + 1, H, W, WIN)
@@ -213,26 +258,32 @@ def _qf(origins, anchors, P: int, WINx: int, WINy: int):
 
 def _sub_windows(B, qii, S: int):
     """sub[t,i,j] = B[t, qii_y+i, qii_x+j] for i,j < S (per-track
-    dynamic slice; selects what the JAX twin's barrel shifter selects)."""
-    T, WINy, WINx = B.shape
+    dynamic slice; selects what the JAX twin's barrel shifter selects).
+    Leading axes (scenes, tracks) are any shape ``qii`` has before its
+    last."""
+    *lead, WINy, WINx = B.shape
     ar = torch.arange(S, device=B.device)
-    rows = (qii[:, 1, None] + ar)[:, :, None]
-    cols = (qii[:, 0, None] + ar)[:, None, :]
-    lin = (rows * WINx + cols).reshape(T, S * S)
-    return B.reshape(T, WINy * WINx).gather(1, lin).reshape(T, S, S)
+    q = qii.reshape(-1, 2)
+    rows = (q[:, 1, None] + ar)[:, :, None]
+    cols = (q[:, 0, None] + ar)[:, None, :]
+    lin = (rows * WINx + cols).reshape(-1, S * S)
+    return B.reshape(-1, WINy * WINx).gather(1, lin).reshape(*lead, S, S)
 
 
 def _bil_t(block, fx, fy, P: int, ox: int, oy: int):
     """(T,P,P) bilinear patch from (T,S,S) sub-blocks at static pixel
-    offset (ox,oy) in {-1,0,1} and per-track fractions fx/fy."""
+    offset (ox,oy) in {-1,0,1} and per-track fractions fx/fy (any leading
+    axes).  bfloat16 blocks upcast to the fractions' dtype HERE, at the
+    four shifted reads, as the JAX twin's ``_bil_t`` does: the blend and
+    every sum downstream run in float32."""
     y0 = 1 + oy
     x0 = 1 + ox
-    w00 = block[:, y0: y0 + P, x0: x0 + P]
-    w01 = block[:, y0: y0 + P, x0 + 1: x0 + P + 1]
-    w10 = block[:, y0 + 1: y0 + P + 1, x0: x0 + P]
-    w11 = block[:, y0 + 1: y0 + P + 1, x0 + 1: x0 + P + 1]
-    fx = fx[:, None, None]
-    fy = fy[:, None, None]
+    w00 = block[..., y0: y0 + P, x0: x0 + P].to(fx.dtype)
+    w01 = block[..., y0: y0 + P, x0 + 1: x0 + P + 1].to(fx.dtype)
+    w10 = block[..., y0 + 1: y0 + P + 1, x0: x0 + P].to(fx.dtype)
+    w11 = block[..., y0 + 1: y0 + P + 1, x0 + 1: x0 + P + 1].to(fx.dtype)
+    fx = fx[..., None, None]
+    fy = fy[..., None, None]
     return (
         w00 * (1.0 - fx) * (1.0 - fy)
         + w01 * fx * (1.0 - fy)
@@ -244,29 +295,28 @@ def _bil_t(block, fx, fy, P: int, ox: int, oy: int):
 def template_patch(blk0, a0, o0, P: int):
     """(T,P,P) bilinear template at float origins ``o0`` = p0 - radius from
     the (T,P+3,P+3) template windows ``blk0`` gathered at float starts
-    ``a0`` (the margin-0 ``_qf``: the sub-window is the whole window)."""
-    qii0, f0 = _qf(o0, a0, P, blk0.shape[2], blk0.shape[1])
-    return _bil_t(_sub_windows(blk0, qii0, P + 3), f0[:, 0], f0[:, 1], P,
-                  0, 0)
+    ``a0`` (the margin-0 ``_qf``: the sub-window is the whole window); any
+    leading axes (S,T,...)."""
+    qii0, f0 = _qf(o0, a0, P, blk0.shape[-1], blk0.shape[-2])
+    return _bil_t(_sub_windows(blk0, qii0, P + 3), f0[..., 0], f0[..., 1],
+                  P, 0, 0)
 
 
 def lk_level_plain(img0, img1, p0_l, v, iters: int, radius: int,
-                   min_det: float, margin: int = MARGIN,
-                   gather=_gather_windows):
+                   min_det: float, margin: int = MARGIN):
     """``iters`` LK updates at one pyramid level for all tracks, in plain
-    PyTorch (port of the XLA path of sfm_tpu/ops/klt._lk_level).
-    ``gather(img, int starts, win)`` fetches the windows (the SFM_TPU_LK_FUSED
-    =0 arm of ops/klt passes the K5 wrapper).  With a scene axis (images
-    (S,H,W), p0_l and v (S,T,2)) it runs scene by scene."""
+    PyTorch (port of the XLA path of sfm_tpu/ops/klt._lk_level; K3's plain
+    version).  With a scene axis (images (S,H,W), p0_l and v (S,T,2)) it
+    runs scene by scene."""
     if img1.dim() == 3:
         return torch.stack([
-            lk_level_plain(a, b, p, w, iters, radius, min_det, margin, gather)
+            lk_level_plain(a, b, p, w, iters, radius, min_det, margin)
             for a, b, p, w in zip(img0, img1, p0_l, v)])
     P = 2 * radius + 1
     # template: fixed patch from img0 (no search margin)
-    blk0, a0 = _load_blocks(img0, p0_l - radius, P, 0, gather)
+    blk0, a0 = _load_blocks(img0, p0_l - radius, P, 0)
     # target: one block per track with the search margin, loaded once
-    blk1, a1 = _load_blocks(img1, p0_l + v - radius, P, margin, gather)
+    blk1, a1 = _load_blocks(img1, p0_l + v - radius, P, margin)
     tmpl = template_patch(blk0, a0, p0_l - radius, P)
     return _lk_iterate_plain(blk1, tmpl, lambda v: p0_l + v - radius - a1, v,
                              iters, min_det)
@@ -278,25 +328,26 @@ def _lk_iterate_plain(blk1, tmpl, q_of, v, iters: int, min_det: float):
     on the (T,WIN,WIN) search windows; ``q_of(v)`` is the float position of
     the patch origin inside the window (K3's plain version forms it as
     ``p0 + v - radius - start`` like the XLA path, K4's as ``base + v`` like
-    the TPU kernel)."""
+    the TPU kernel).  Any leading axes (S,T,...): every track's arithmetic
+    is its own."""
     P = tmpl.shape[-1]
     S = P + 3
-    WINy1, WINx1 = blk1.shape[1], blk1.shape[2]
+    WINy1, WINx1 = blk1.shape[-2:]
     for _ in range(iters):
         qii, f = _qf(q_of(v), 0.0, P, WINx1, WINy1)
         sub = _sub_windows(blk1, qii, S)
-        fx, fy = f[:, 0], f[:, 1]
+        fx, fy = f[..., 0], f[..., 1]
         cur = _bil_t(sub, fx, fy, P, 0, 0)
         gx = 0.5 * (_bil_t(sub, fx, fy, P, 1, 0)
                     - _bil_t(sub, fx, fy, P, -1, 0))
         gy = 0.5 * (_bil_t(sub, fx, fy, P, 0, 1)
                     - _bil_t(sub, fx, fy, P, 0, -1))
         r = tmpl - cur
-        gxx = torch.sum(gx * gx, dim=(1, 2))
-        gxy = torch.sum(gx * gy, dim=(1, 2))
-        gyy = torch.sum(gy * gy, dim=(1, 2))
-        bx = torch.sum(gx * r, dim=(1, 2))
-        by = torch.sum(gy * r, dim=(1, 2))
+        gxx = torch.sum(gx * gx, dim=(-2, -1))
+        gxy = torch.sum(gx * gy, dim=(-2, -1))
+        gyy = torch.sum(gy * gy, dim=(-2, -1))
+        bx = torch.sum(gx * r, dim=(-2, -1))
+        by = torch.sum(gy * r, dim=(-2, -1))
         det = gxx * gyy - gxy * gxy
         inv_det = torch.where(det.abs() > min_det, 1.0 / det,
                               torch.zeros_like(det))
@@ -311,7 +362,7 @@ def _lk_level_fused_cuda(img0, img1, p0_l, v, iters, radius, min_det,
     global level_launches
     P = 2 * radius + 1
     WIN = P + 2 * margin + 3
-    _check_image_pair(img0, img1, WIN, "lk_level_fused", dims=(2, 3))
+    bf16 = _check_image_pair(img0, img1, WIN, "lk_level_fused", dims=(2, 3))
     if margin <= 0:
         raise ValueError("lk_level_fused needs a positive search margin")
     # a single pair is the one-scene case of the stack
@@ -334,9 +385,10 @@ def _lk_level_fused_cuda(img0, img1, p0_l, v, iters, radius, min_det,
         code = lib.sfm_lk_level_fused(
             img0.data_ptr(), img1.data_ptr(), H, W, p0_l.data_ptr(),
             v.data_ptr(), S * T, T, int(radius), int(margin), int(iters),
-            float(min_det), out.data_ptr(), stream)
+            float(min_det), out.data_ptr(), bf16, stream)
     build.check_launch(code, "lk_level_fused")
     level_launches += 1
+    _count(bf16)
     return debug.check_finite(out, "lk_level_fused")
 
 
@@ -360,46 +412,53 @@ def lk_level_fused(img0, img1, p0_l, v, iters: int, radius: int,
 def lk_level_tmpl_plain(blocks, tmpl, base, v, iters: int, min_det: float):
     """``iters`` LK updates for all tracks on search windows ``blocks``
     (T,WIN,WIN) gathered at float starts ``start``, against the template
-    ``tmpl`` (T,P,P); ``base`` (T,2) = (p0 - radius) - start.  Returns v."""
+    ``tmpl`` (T,P,P); ``base`` (T,2) = (p0 - radius) - start.  Returns v.
+    Any leading axes: (S,T,...) for a stack of scenes."""
     return _lk_iterate_plain(blocks, tmpl, lambda v: base + v, v, iters,
                              min_det)
 
 
 def _lk_level_tmpl_cuda(blocks, tmpl, base, v, iters, min_det):
     global tmpl_launches
-    T, WIN = blocks.shape[0], blocks.shape[-1]
+    bf16 = _storage_flag("lk_level_tmpl", blocks)
+    lead = tuple(blocks.shape[:-3])
+    T, WIN = blocks.shape[-3], blocks.shape[-1]
     P = tmpl.shape[-1]
-    if (blocks.dtype != torch.float32 or blocks.shape != (T, WIN, WIN)
+    if (len(lead) > 1 or blocks.shape[-2] != WIN
             or not blocks.is_contiguous()):
-        raise TypeError("lk_level_tmpl takes contiguous float32 windows "
-                        f"(T,WIN,WIN), got {tuple(blocks.shape)} "
-                        f"{blocks.dtype}")
+        raise TypeError("lk_level_tmpl takes contiguous windows (T,WIN,WIN) "
+                        f"or (S,T,WIN,WIN), got {tuple(blocks.shape)}")
     if WIN < P + 5:
         raise ValueError(f"lk_level_tmpl: window {WIN} leaves no search "
                          f"margin around a {P}-px patch")
-    for a, shape in ((tmpl, (T, P, P)), (base, (T, 2)), (v, (T, 2))):
+    for a, shape in ((tmpl, (*lead, T, P, P)), (base, (*lead, T, 2)),
+                     (v, (*lead, T, 2))):
         if (a.dtype != torch.float32 or a.shape != shape
                 or a.device != blocks.device):
             raise TypeError("lk_level_tmpl takes a float32 template (T,P,P) "
-                            "and float32 (T,2) bases and flows on the "
-                            "windows' device")
+                            "and float32 (T,2) bases and flows, with the "
+                            "windows' leading axes, on the windows' device")
     tmpl, base, v = tmpl.contiguous(), base.contiguous(), v.contiguous()
+    n = blocks.numel() // (WIN * WIN)  # the scenes' tracks, one table
     lib = build.load()
-    out = torch.empty((T, 2), dtype=torch.float32, device=blocks.device)
+    out = torch.empty((*lead, T, 2), dtype=torch.float32,
+                      device=blocks.device)
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.sfm_lk_level_tmpl(
             blocks.data_ptr(), tmpl.data_ptr(), base.data_ptr(),
-            v.data_ptr(), T, int(P), int(WIN), int(iters), float(min_det),
-            out.data_ptr(), stream)
+            v.data_ptr(), n, int(P), int(WIN), int(iters), float(min_det),
+            out.data_ptr(), bf16, stream)
     build.check_launch(code, "lk_level_tmpl")
     tmpl_launches += 1
+    _count(bf16)
     return debug.check_finite(out, "lk_level_tmpl")
 
 
 def lk_level_tmpl(blocks, tmpl, base, v, iters: int, min_det: float):
-    """K4. CUDA tensors -> the kernel (all iterations in one launch), CPU
-    tensors -> ``lk_level_tmpl_plain``."""
+    """K4, for one scene or an (S,T,...) stack (one launch). CUDA tensors
+    -> the kernel (all iterations in one launch), CPU tensors ->
+    ``lk_level_tmpl_plain``."""
     if blocks.is_cuda:
         return _lk_level_tmpl_cuda(blocks, tmpl, base, v, iters, min_det)
     return lk_level_tmpl_plain(blocks, tmpl, base, v, iters, min_det)

@@ -25,16 +25,23 @@ time ("0" turns an arm off; both default on):
       windows through K5, the iteration loop in PyTorch (the JAX twin runs
       it as an XLA loop outside any kernel).
 
-The JAX twin's SFM_TPU_PALLAS (which on the card would run no kernel) and
-SFM_TPU_LK_BF16 are not read.  On the CPU every kernel is its plain
-version (ops/kernels/lk_kernels).
+The JAX twin's SFM_TPU_PALLAS (which on the card would run no kernel) is
+not read.  On the CPU every kernel is its plain version
+(ops/kernels/lk_kernels).
+
+Block storage (``lk_dtype``): SFM_TPU_LK_BF16=1 stores both pyramids in
+bfloat16 from the first level on (``lk_track`` casts them, as the JAX
+twin's does); anything else, unset included, keeps float32 (the JAX
+package's default off a TPU).  Positions, flows, templates and every sum
+stay float32: the kernels and plain versions upcast each pixel they read.
 
 Scene axis (the multi-scene runner, parallel/multi_scan): ``lk_track`` and
 ``lk_track_fb`` also take scene-stacked pyramids, each level (S,H_L,W_L),
-with points (S,T,2) and masks (S,T).  Arm (a) sends the whole stack to
-ONE launch of K3 per level and direction; arms (b) and (c) run scene by
-scene with the single-scene calls (one K4 launch and two K5 launches per
-scene, level and direction under arm (b)).  Every scene's result is the
+with points (S,T,2) and masks (S,T).  Each arm sends the whole stack to
+one call per step, as the JAX twin does under ``jax.vmap``: arm (a) ONE
+launch of K3 per level and direction; arm (b) two launches of K5 (the
+template and the search windows) and one of K4; arm (c) two of K5 and one
+pass of the plain iteration loop.  Every scene's result is the
 single-scene one, bit for bit.
 """
 
@@ -54,13 +61,25 @@ def _env_on(name: str) -> bool:
     return os.environ.get(name, "").strip() != "0"
 
 
+def lk_dtype() -> torch.dtype:
+    """Block-storage dtype of the LK images (the JAX twin's ``_lk_dtype``):
+    bfloat16 when SFM_TPU_LK_BF16 is "1", else float32.  Read at every
+    call, as the arm switches are: the JAX twin memoizes its choice
+    (``_LK_DTYPE_RESOLVED``) only because it is read at trace time inside
+    jitted callers whose compile cache does not see the variable."""
+    return (torch.bfloat16
+            if os.environ.get("SFM_TPU_LK_BF16", "").strip() == "1"
+            else torch.float32)
+
+
 def _lk_level(img0, img1, p0_l, v, iters: int, radius: int, min_det: float,
               margin: int = MARGIN):
     """Run ``iters`` LK updates at one pyramid level for all tracks.
 
     p0_l: (T,2) template positions at this level; v: (T,2) current flow
     (or (S,H,W) images with (S,T,2) positions and flows for S scenes).
-    Returns the updated flow v."""
+    The images are float32 or bfloat16 (``lk_dtype``).  Returns the
+    updated flow v."""
     P = 2 * radius + 1
     WIN = P + 2 * margin + 3
     H1, W1 = img1.shape[-2:]
@@ -70,22 +89,20 @@ def _lk_level(img0, img1, p0_l, v, iters: int, radius: int, min_det: float,
             and img0.shape == img1.shape):
         return lk_kernels.lk_level_fused(img0, img1, p0_l, v, iters, radius,
                                          min_det, margin)
-    if img1.dim() == 3:  # arms (b) and (c): scene by scene
-        return torch.stack([
-            _lk_level(a, b, p, w, iters, radius, min_det, margin)
-            for a, b, p, w in zip(img0, img1, p0_l, v)])
-    if not fused_ok:
-        return lk_kernels.lk_level_plain(img0, img1, p0_l, v, iters, radius,
-                                         min_det, margin,
-                                         gather=lk_kernels.lk_gather)
-    # template: K5 windows of img0 (clamped to img0's own size), the patch
-    # built here as the JAX twin builds it outside its kernel
+    # arms (b) and (c): K5 windows of img0 (clamped to img0's own size) and
+    # of img1, the template built here as the JAX twin builds it outside
+    # its kernel; all scenes of a stack in each call
     o0 = p0_l - radius
     blk0, a0 = _load_blocks(img0, o0, P, 0, lk_kernels.lk_gather)
     tmpl = lk_kernels.template_patch(blk0, a0, o0, P)
     blk1, a1 = _load_blocks(img1, p0_l + v - radius, P, margin,
                             lk_kernels.lk_gather)
-    return lk_kernels.lk_level_tmpl(blk1, tmpl, o0 - a1, v, iters, min_det)
+    if fused_ok:
+        return lk_kernels.lk_level_tmpl(blk1, tmpl, o0 - a1, v, iters,
+                                        min_det)
+    # the loop outside any kernel, its origin formed as the XLA path's
+    return lk_kernels._lk_iterate_plain(
+        blk1, tmpl, lambda v: p0_l + v - radius - a1, v, iters, min_det)
 
 
 def lk_track(pyr0, pyr1, pts, valid, levels: int, iters: int, radius: int,
@@ -95,10 +112,12 @@ def lk_track(pyr0, pyr1, pts, valid, levels: int, iters: int, radius: int,
     Returns (new_pts (T,2), ok (T,) bool). ref: cpp:402-460 coarse-to-fine.
     Scene-stacked pyramids (levels (S,H_L,W_L)) with (S,T,2) points give
     (S,T,2) and (S,T); each scene is bounds-tested against its own image.
+    Both pyramids are stored in ``lk_dtype()`` for the whole pass.
     """
     dev = resolve(device)
-    pyr0 = tuple(to_device(p, dev, torch.float32).contiguous() for p in pyr0)
-    pyr1 = tuple(to_device(p, dev, torch.float32).contiguous() for p in pyr1)
+    dt = lk_dtype()
+    pyr0 = tuple(to_device(p, dev, dt).contiguous() for p in pyr0)
+    pyr1 = tuple(to_device(p, dev, dt).contiguous() for p in pyr1)
     pts = to_device(pts, dev, torch.float32)
     valid = to_device(valid, dev)
     v = torch.zeros_like(pts)

@@ -174,6 +174,178 @@ def test_torch_scene_batched_kernels_match_single_launches(rng):
         assert float((out[s] - ref)[ok].abs().max()) <= 1e-4, s
 
 
+def _bits(t):
+    """A float32 tensor's bit patterns (NaN flows compare equal)."""
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.gpu
+def test_torch_lk_bf16_kernels_are_f32_on_rounded_images(rng):
+    """K3, K4, K5 and K2 on bfloat16 storage (SFM_TPU_LK_BF16=1) launch
+    their bfloat16 instantiations and give, bit for bit, their float32
+    launches on the same images rounded to bfloat16 (the kernels convert
+    each pixel exactly as they stage it); a float16 image, or a pair of
+    mixed dtypes, raises TypeError.  ``python3 chip_smoke.py`` also holds
+    them to their bfloat16 plain versions at full size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    a = torch.as_tensor(make_textured(rng, 120, 160), device=dev)
+    b = torch.roll(a, (2, -3), (0, 1)).contiguous()
+    a16, b16 = a.to(bf), b.to(bf)
+    ar, br = a16.float(), b16.float()  # the rounded images in float32
+    pts = torch.as_tensor(rng.uniform(0, [159, 119], (100, 2)),
+                          dtype=torch.float32, device=dev)
+    pts[:4] = float("nan")
+    v0 = torch.as_tensor(rng.uniform(-2, 2, (100, 2)), dtype=torch.float32,
+                         device=dev)
+    n16 = lk_kernels.bf16_launches
+    # K3
+    for radius in (5, 6, 12):
+        out = lk_kernels.lk_level_fused(a16, b16, pts, v0, 8, radius, 1e-4)
+        ref = lk_kernels.lk_level_fused(ar, br, pts, v0, 8, radius, 1e-4)
+        assert torch.equal(_bits(out), _bits(ref)), radius
+    # K5 and K2 at the LK widths and one outside the compiled set
+    st = torch.as_tensor(rng.integers(-40, 200, (100, 2)), dtype=torch.int32,
+                         device=dev)
+    st[0] = torch.tensor([-2**31, 2**31 - 1], dtype=torch.int32)
+    m = lk_kernels.MARGIN
+    for w0, w1 in ((6, 6 + 2 * m), (16, 16 + 2 * m), (17, 17 + 2 * m)):
+        for w in (w0, w1):
+            got = lk_kernels.lk_gather(b16, st, w)
+            assert got.dtype == bf
+            assert torch.equal(got.float(), lk_kernels.lk_gather(br, st, w))
+            assert torch.equal(got, lk_kernels.lk_gather_plain(b16, st, w))
+        got = lk_kernels.lk_gather_pair(a16, st, w0, b16, st.flip(0), w1)
+        want = lk_kernels.lk_gather_pair(ar, st, w0, br, st.flip(0), w1)
+        assert all(x.dtype == bf and torch.equal(x.float(), y)
+                   for x, y in zip(got, want)), (w0, w1)
+    # K4 on bfloat16 windows with the float32 template
+    for radius in (5, 6):
+        P = 2 * radius + 1
+        o0 = pts - radius
+        blk0, a0 = lk_kernels._load_blocks(a16, o0, P, 0, lk_kernels.lk_gather)
+        tmpl = lk_kernels.template_patch(blk0, a0, o0, P)
+        assert tmpl.dtype == torch.float32
+        blk1, a1 = lk_kernels._load_blocks(b16, o0 + v0, P, m,
+                                           lk_kernels.lk_gather)
+        out = lk_kernels.lk_level_tmpl(blk1, tmpl, o0 - a1, v0, 8, 1e-4)
+        ref = lk_kernels.lk_level_tmpl(blk1.float(), tmpl, o0 - a1, v0, 8,
+                                       1e-4)
+        assert torch.equal(_bits(out), _bits(ref)), radius
+    # 3 K3 + 3 x (2 K5 + 1 K2) + 2 x (2 K5 + 1 K4)
+    assert lk_kernels.bf16_launches - n16 == 3 + 9 + 6
+    # no other storage, and no mixed pair
+    h = a.half()
+    for call in (
+            lambda: lk_kernels.lk_gather(h, st, 16),
+            lambda: lk_kernels.lk_gather(a.double(), st, 16),
+            lambda: lk_kernels.lk_gather_pair(h, st, 16, b.half(), st, 28),
+            lambda: lk_kernels.lk_level_fused(h, b.half(), pts, v0, 8, 6,
+                                              1e-4),
+            lambda: lk_kernels.lk_level_fused(a16, br, pts, v0, 8, 6, 1e-4),
+            lambda: lk_kernels.lk_level_tmpl(blk1.half(), tmpl, o0 - a1, v0,
+                                             8, 1e-4)):
+        with pytest.raises(TypeError):
+            call()
+
+
+@pytest.mark.gpu
+def test_torch_lk_k4_k5_scene_stack_match_single_launches(rng):
+    """K5 and K4 with a scene axis (S=3), on float32 and on bfloat16
+    storage: one launch over the stack gives the bits of one launch per
+    scene (NaN flows included), each scene's windows clamped against its
+    own image; the stacked K5 is its plain version bit for bit.
+    ``python3 chip_smoke.py`` holds the same at the multi-scene runner's
+    shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    S, T, radius = 3, 100, 6
+    P = 2 * radius + 1
+    m = lk_kernels.MARGIN
+    a = torch.stack([torch.as_tensor(make_textured(rng, 120, 160),
+                                     device=dev) for _ in range(S)])
+    b = torch.stack([torch.roll(x, (2, -s), (0, 1))
+                     for s, x in enumerate(a)]).contiguous()
+    pts = torch.as_tensor(rng.uniform(0, [159, 119], (S, T, 2)),
+                          dtype=torch.float32, device=dev)
+    pts[1, :5] = float("nan")
+    v0 = torch.as_tensor(rng.uniform(-2, 2, (S, T, 2)), dtype=torch.float32,
+                         device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        a_, b_ = a.to(dt), b.to(dt)
+        n5, n4 = lk_kernels.gather1_launches, lk_kernels.tmpl_launches
+        o0 = pts - radius
+        blk0, a0 = lk_kernels._load_blocks(a_, o0, P, 0, lk_kernels.lk_gather)
+        blk1, a1 = lk_kernels._load_blocks(b_, o0 + v0, P, m,
+                                           lk_kernels.lk_gather)
+        tmpl = lk_kernels.template_patch(blk0, a0, o0, P)
+        out = lk_kernels.lk_level_tmpl(blk1, tmpl, o0 - a1, v0, 8, 1e-4)
+        assert (lk_kernels.gather1_launches - n5,
+                lk_kernels.tmpl_launches - n4) == (2, 1)
+        assert blk1.shape == (S, T, P + 2 * m + 3, P + 2 * m + 3)
+        assert out.shape == (S, T, 2)
+        starts = lk_kernels.window_start(o0 + v0, m + 1, 120, 160,
+                                         P + 2 * m + 3).to(torch.int32)
+        assert torch.equal(blk1, lk_kernels.lk_gather_plain(
+            b_, starts, P + 2 * m + 3))
+        for s in range(S):
+            one = lk_kernels.lk_gather(b_[s], starts[s], P + 2 * m + 3)
+            assert torch.equal(blk1[s], one), (dt, s)
+            res = lk_kernels.lk_level_tmpl(blk1[s], tmpl[s], (o0 - a1)[s],
+                                           v0[s], 8, 1e-4)
+            assert torch.equal(_bits(out[s]), _bits(res)), (dt, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("arm", ["tmpl", "unfused"])
+def test_torch_lk_track_fb_stacked_arms_match_per_scene_on_card(
+        rng, monkeypatch, arm, dtype):
+    """``klt.lk_track_fb`` on a scene stack (S=3, 90 tracks a scene: the
+    stacked table is no whole number of 4-track rows per scene) on the
+    card under arm (b) (SFM_TPU_LK_FUSED_TMPL=0: K5 + K4) and arm (c)
+    (SFM_TPU_LK_FUSED=0: K5 + the plain loop), float32 and bfloat16
+    storage: flows and masks bit for bit the per-scene calls, with the
+    stack served by one K5 launch per window set (and one K4 launch) per
+    level and direction."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from sfm_tpu_torch.ops import image as im, klt
+
+    monkeypatch.setenv("SFM_TPU_LK_FUSED", "1" if arm == "tmpl" else "0")
+    monkeypatch.setenv("SFM_TPU_LK_FUSED_TMPL", "0")
+    monkeypatch.setenv("SFM_TPU_LK_BF16", "1" if dtype == "bf16" else "0")
+    dev = torch.device("cuda")
+    S, T, levels = 3, 90, 3
+    a = torch.stack([torch.as_tensor(make_textured(rng, 120, 160),
+                                     device=dev) for _ in range(S)])
+    b = torch.stack([torch.roll(x, (2 - s, s - 3), (0, 1))
+                     for s, x in enumerate(a)])
+    pyr0 = tuple(torch.stack(x) for x in zip(
+        *(im.build_pyramid(x, levels) for x in a)))
+    pyr1 = tuple(torch.stack(x) for x in zip(
+        *(im.build_pyramid(x, levels) for x in b)))
+    pts = torch.as_tensor(rng.uniform(0, [159, 119], (S, T, 2)),
+                          dtype=torch.float32, device=dev)
+    valid = torch.as_tensor(rng.random((S, T)) < 0.9, device=dev)
+    n5, n4 = lk_kernels.gather1_launches, lk_kernels.tmpl_launches
+    new, ok = klt.lk_track_fb(pyr0, pyr1, pts, valid, levels, 8, 4,
+                              device=dev)
+    assert lk_kernels.gather1_launches - n5 == 2 * levels * 2
+    assert lk_kernels.tmpl_launches - n4 == (levels * 2 if arm == "tmpl"
+                                             else 0)
+    assert ok.float().mean() > 0.5
+    for s in range(S):
+        ns, oks = klt.lk_track_fb(tuple(p[s] for p in pyr0),
+                                  tuple(p[s] for p in pyr1), pts[s],
+                                  valid[s], levels, 8, 4, device=dev)
+        assert torch.equal(_bits(new[s]), _bits(ns)), s
+        assert torch.equal(ok[s], oks), s
+
+
 @pytest.mark.gpu
 def test_torch_disparity_on_card_matches_cpu(rng):
     """The stereo matcher (models.mesh._disparity_sad, plain PyTorch) on a

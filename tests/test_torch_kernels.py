@@ -649,8 +649,9 @@ def test_torch_lk_track_fb_scene_axis_equals_per_scene(rng, monkeypatch,
     """``klt.lk_track_fb`` on scene-stacked 3-level pyramids (S=3, 90
     tracks each, some within a window of the border, a few dead) under
     each arm: flows and masks exactly those of the per-scene calls
-    (tolerance 0; arm (a) stacks the scenes into one K3 call, arms (b)
-    and (c) run scene by scene)."""
+    (tolerance 0; every arm takes the whole stack at once: arm (a) one K3
+    call, arm (b) one K4 call and two K5 calls, arm (c) two K5 calls and
+    one pass of the plain loop, per level and direction)."""
     _set_arm(monkeypatch, arm)
     a, b = _scenes(rng)
     pyr0 = tuple(torch.stack(x) for x in zip(

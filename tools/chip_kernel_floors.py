@@ -33,14 +33,25 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 
-# mangled-name pieces of the instantiations the main path launches
+# mangled-name pieces (the whole template-argument list) of the
+# instantiations the main path launches, on float32 storage and on
+# bfloat16 (SFM_TPU_LK_BF16=1)
 MAIN_PATH = {
-    "shi_tomasi_kernel<2>": ("shi_tomasi_kernel", "ILi2E"),
-    "shi_tomasi_kernel<3>": ("shi_tomasi_kernel", "ILi3E"),
-    "lk_level_fused_kernel<13>": ("lk_level_fused_kernel", "ILi13E"),
-    "lk_level_tmpl_kernel<13>": ("lk_level_tmpl_kernel", "ILi13E"),
-    "lk_gather_kernel<false, 16>": ("lk_gather_kernel", "ILb0ELi16E"),
-    "lk_gather_kernel<false, 28>": ("lk_gather_kernel", "ILb0ELi28E"),
+    "shi_tomasi_kernel<2>": ("shi_tomasi_kernel", "ILi2EE"),
+    "shi_tomasi_kernel<3>": ("shi_tomasi_kernel", "ILi3EE"),
+    "lk_level_fused_kernel<13, float>": ("lk_level_fused_kernel",
+                                         "ILi13EfE"),
+    "lk_level_fused_kernel<13, bf16>": ("lk_level_fused_kernel",
+                                        "ILi13E13__nv_bfloat16E"),
+    "lk_level_tmpl_kernel<13, float>": ("lk_level_tmpl_kernel", "ILi13EfE"),
+    "lk_level_tmpl_kernel<13, bf16>": ("lk_level_tmpl_kernel",
+                                       "ILi13E13__nv_bfloat16E"),
+    "lk_gather_kernel<false, 16, 0, float>": ("lk_gather_kernel",
+                                              "ILb0ELi16ELi0EfE"),
+    "lk_gather_kernel<false, 28, 0, float>": ("lk_gather_kernel",
+                                              "ILb0ELi28ELi0EfE"),
+    "lk_gather_kernel<false, 28, 0, bf16>": ("lk_gather_kernel",
+                                             "ILb0ELi28ELi0E13__nv_bfloat16E"),
 }
 
 
