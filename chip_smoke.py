@@ -16,7 +16,11 @@ Phases, one JSON line each on standard output:
             structure refinement), checks that the kernels were launched by
             it, that the artifacts exist, that the loop closed and that the
             trajectory is right (Sim(3) ATE under 5 % of the trajectory's
-            extent);
+            extent); and grades its keyframe edges against the ring's GT
+            relative poses (ops.umeyama.edge_errors on the card in
+            float64: median and max rotation and direction errors, the
+            medians under EDGE_ROT_MEDIAN_BAR and EDGE_DIR_MEDIAN_BAR,
+            the JAX package's own medians on this ring beside them);
   bf16      the same ring and configuration through ScanSfM with
             SFM_TPU_LK_BF16=1 (the LK pyramids stored in bfloat16: K3's
             bfloat16 instantiation on the main path), held to the
@@ -33,7 +37,7 @@ Phases, one JSON line each on standard output:
   host      the same ring through the CLI's default pipeline,
             SfMSystem.process / finalize / export (warm-up run, then the
             measured run; the global BA on the AoS path), with its stage
-            timers;
+            timers and the pipeline phase's edge errors and bars;
   cli       ``python -m sfm_tpu_torch --synthetic 8`` in a subprocess, with
             ``--pipeline host`` (the default), ``--pipeline scan``, and
             ``--pipeline scan --export-geometry both --debug-nans`` (every
@@ -1085,28 +1089,32 @@ def phase_kernels(dev, frame0, scene_pairs) -> list[dict]:
 ATE_LOOP_OFF_RECORDED = 0.0310
 
 
+# the bench configuration of the JAX package (bench.py bench_config) at
+# full width: loop closure on with device-side verification, the synthetic
+# ring's lowered descriptor gate, the final structure refinement at its
+# default 10 iterations
+SMOKE_OVERRIDES = {
+    "frames": FRAMES,
+    "klt.max_tracks": T_TRACKS,
+    "klt.pyr_levels": LEVELS,
+    "klt.iters": ITERS,
+    "klt.win_radius": RADIUS,
+    "ransac.num_hypotheses": 1024,
+    "ransac.sampson_thresh": 2e-5,
+    "ba.iters": 3,
+    "ba.window": 6,
+    "loop.enabled": True,
+    "loop.device_verify": True,
+    "loop.score_thresh": 0.3,
+    "loop.ransac_thresh": 2e-5,
+}
+
+
 def smoke_config():
-    """The bench configuration of the JAX package (bench.py bench_config)
-    at full width: loop closure on with device-side verification, the
-    synthetic ring's lowered descriptor gate, the final structure
-    refinement at its default 10 iterations."""
+    """The port's config at SMOKE_OVERRIDES."""
     from sfm_tpu_torch.config import load_config
 
-    return load_config(None, overrides={
-        "frames": FRAMES,
-        "klt.max_tracks": T_TRACKS,
-        "klt.pyr_levels": LEVELS,
-        "klt.iters": ITERS,
-        "klt.win_radius": RADIUS,
-        "ransac.num_hypotheses": 1024,
-        "ransac.sampson_thresh": 2e-5,
-        "ba.iters": 3,
-        "ba.window": 6,
-        "loop.enabled": True,
-        "loop.device_verify": True,
-        "loop.score_thresh": 0.3,
-        "loop.ransac_thresh": 2e-5,
-    })
+    return load_config(None, overrides=SMOKE_OVERRIDES)
 
 
 def run_pipeline(dev, K, frames, names, out_dir, cfg=None):
@@ -1178,6 +1186,61 @@ def centers_ate_ratio(centers, frames, ds) -> float:
     return float(res["rmse"]) / extent
 
 
+# bars on the medians of the keyframe-edge errors (degrees).  Rotation:
+# tests/test_system.py:88's 2.0; an edge graded against the wrong pair of
+# frames is off by whole ring steps (360 / 47 = 7.66 degrees).
+# Direction: tests/test_system.py:89's 4.0 holds on that test's 8-frame
+# 40-degree ring, not on this one, where the JAX package's own runs reach
+# 4.27 (ScanSfM) and 4.93 (SfMSystem) (tools/jax_ring47_edges.py, on the
+# CPU) and the port's 4.70-5.43 (ScanSfM) and 3.59-4.67 (SfMSystem) over
+# five RANSAC seeds (tools/chip_ate_spread.py, NVIDIA H100 80GB HBM3 at
+# 700 W); 6.0 lies above every median either package reaches here
+EDGE_ROT_MEDIAN_BAR = 2.0
+EDGE_DIR_MEDIAN_BAR = 6.0
+# the JAX package's medians on this ring at SMOKE_OVERRIDES, with its own
+# draws, on the CPU (tools/jax_ring47_edges.py): printed beside the port's
+EDGE_MEDIANS_JAX_CPU = {
+    "pipeline": {"rot_deg": 1.0092696329527944, "dir_deg": 4.271774607902265},
+    "host": {"rot_deg": 1.2623173967513173, "dir_deg": 4.926126676232987},
+}
+
+
+def edge_errors_on_card(dev, s, ds) -> dict:
+    """Relative-edge errors of a run's keyframe edges (``s.edges``, loop
+    edges included) against the ring's GT relative poses of the same
+    keyframes' frames: the port's ``edge_errors`` on the card, float64
+    (cpp/tools/gt_keyframe_edge.cpp:377-384, BASELINE.md's edge table).
+    Degrees; the direction error is the min over +-GT."""
+    from sfm_tpu_torch.ops import umeyama
+
+    gt = [_rel_pose(ds, s.kfs[e.i].frame_idx, s.kfs[e.j].frame_idx)
+          for e in s.edges]
+
+    def card(xs):
+        return torch.as_tensor(np.stack(xs).astype(np.float64), device=dev)
+
+    rot, dirn = umeyama.edge_errors(
+        card([e.R_ji for e in s.edges]), card([e.t_ji for e in s.edges]),
+        card([g[0] for g in gt]), card([g[1] for g in gt]))
+    on_card = rot.is_cuda and dirn.is_cuda
+    rot, dirn = rot.cpu().numpy(), dirn.cpu().numpy()
+    return {"edge_count": len(rot), "edge_errors_on_cuda": on_card,
+            "edge_rot_median_deg": float(np.median(rot)),
+            "edge_rot_max_deg": float(rot.max()),
+            "edge_dir_median_deg": float(np.median(dirn)),
+            "edge_dir_max_deg": float(dirn.max())}
+
+
+def edge_checks(edges: dict) -> dict:
+    """The keyframe-edge medians against EDGE_ROT_MEDIAN_BAR and
+    EDGE_DIR_MEDIAN_BAR."""
+    return {"edges_on_cuda": edges["edge_errors_on_cuda"],
+            "edge_rot_median": edges["edge_rot_median_deg"]
+            < EDGE_ROT_MEDIAN_BAR,
+            "edge_dir_median": edges["edge_dir_median_deg"]
+            < EDGE_DIR_MEDIAN_BAR}
+
+
 def reset_launches() -> None:
     from sfm_tpu_torch.ops.kernels import lk_kernels, shi_tomasi_kernel
 
@@ -1229,6 +1292,7 @@ def phase_pipeline(dev) -> tuple[dict, dict, tuple]:
 
     n_kf, n_pts = len(s.kfs), len(s.map_xyz)
     loops = [(e.i, e.j) for e in s.edges if e.is_loop]
+    edges = edge_errors_on_card(dev, s, ds)
     # the tracker's two passes per frame, plus two per loop verification,
     # LEVELS launches each
     expect_k3 = (FRAMES - 1 + s.loop_verifications) * LEVELS * 2
@@ -1243,6 +1307,7 @@ def phase_pipeline(dev) -> tuple[dict, dict, tuple]:
         "finite": bool(np.isfinite(est).all()
                        and np.isfinite(s.map_xyz).all()),
         "ate": ratio < 0.05,
+        **edge_checks(edges),
     }
     line = {
         "phase": "pipeline", "frames": FRAMES, "keyframes": n_kf,
@@ -1250,6 +1315,7 @@ def phase_pipeline(dev) -> tuple[dict, dict, tuple]:
         "loop_edges": loops, "loop_verifications": s.loop_verifications,
         "pose_graph_solves": s.pg_solves,
         "ate_ratio": ratio, "ate_ratio_loop_off_recorded": ATE_LOOP_OFF_RECORDED,
+        **edges, "edge_medians_jax_cpu": EDGE_MEDIANS_JAX_CPU["pipeline"],
         "wall_s": dt, "fps": FRAMES / dt,
         "wall_s_frames": dt_frames, "wall_s_finalize": dt - dt_frames,
         **stages,
@@ -1705,6 +1771,7 @@ def phase_host(dev) -> tuple[dict, dict]:
         n_ply = len(artifacts.read_ply_xyz(out / files[2]))
         ratio = ate_ratio(s.kfs, ds)
     loops = [(e.i, e.j) for e in s.edges if e.is_loop]
+    edges = edge_errors_on_card(dev, s, ds)
     F, P, M = s.global_ba_shape or (0, 0, 0)
     expect_k3 = (FRAMES - 1 + s.loop_verifications) * LEVELS * 2
     checks = {
@@ -1716,6 +1783,7 @@ def phase_host(dev) -> tuple[dict, dict]:
         "finite": bool(np.isfinite(np.stack([k.center for k in s.kfs])).all()
                        and np.isfinite(s.map.xyz()).all()),
         "ate": ratio < 0.05,
+        **edge_checks(edges),
     }
     line = {
         "phase": "host", "frames": FRAMES, "wall_s": dt, "fps": FRAMES / dt,
@@ -1723,7 +1791,8 @@ def phase_host(dev) -> tuple[dict, dict]:
         "keyframes": info["keyframes"], "map_points": info["map_points"],
         "exported_points": n_ply, "edges": info["edges"],
         "loop_edges": loops, "loop_verifications": s.loop_verifications,
-        "global_ba_shape": [F, P, M], "ate_ratio": ratio,
+        "global_ba_shape": [F, P, M], "ate_ratio": ratio, **edges,
+        "edge_medians_jax_cpu": EDGE_MEDIANS_JAX_CPU["host"],
         "stage_timers": s.timers.summary(), "launches": counts,
         "checks": checks, "ok": all(checks.values()),
     }

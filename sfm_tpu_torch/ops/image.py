@@ -11,6 +11,11 @@ from __future__ import annotations
 import torch
 
 
+def to_float(img):
+    """uint8 HxW -> f32 HxW in [0,255]."""
+    return torch.as_tensor(img).to(torch.float32)
+
+
 def downsample2(img):
     """2x2 box-filter downsample (ref: cpp:200-218). Truncates odd edges."""
     H, W = img.shape
@@ -92,3 +97,10 @@ def box_filter(img, radius: int):
     for d in range(1, radius + 1):
         out = out + _shift_zero(row, d, -2) + _shift_zero(row, -d, -2)
     return out
+
+
+def patch_grid(radius: int, dtype=torch.float32, *, device=None):
+    """(P,2) offsets of a (2r+1)x(2r+1) patch in (dx,dy) order."""
+    r = torch.arange(-radius, radius + 1, dtype=dtype, device=device)
+    dx, dy = torch.meshgrid(r, r, indexing="xy")
+    return torch.stack([dx.reshape(-1), dy.reshape(-1)], dim=-1)

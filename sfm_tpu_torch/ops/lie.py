@@ -93,6 +93,22 @@ def so3_log(R):
     return torch.where(near_pi[..., None], w_pi, w_generic)
 
 
+def quat_to_rot(q):
+    """Unit quaternion (w,x,y,z) -> rotation matrix; used by synthetic data."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                         2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                         2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                         1 - 2 * (x * x + y * y)], -1),
+        ],
+        dim=-2,
+    )
+
+
 # ---------------------------------------------------------------------------
 # SE(3) poses: a pose batch is a pair (R: (...,3,3), t: (...,3)), stored
 # either camera-to-world (R_cw, t_cw) or world-to-camera (R_wc, t_wc).
@@ -108,3 +124,57 @@ def pose_inv(R, t):
 def pose_compose(Ra, ta, Rb, tb):
     """(Ra,ta) ∘ (Rb,tb): apply b first, then a."""
     return Ra @ Rb, torch.einsum("...ij,...j->...i", Ra, tb) + ta
+
+
+def compose_right_inv_ij(R_cw, t_cw, R_ji, t_ji):
+    """Next camera-to-world pose from current pose and relative pose i->j.
+
+    ref: py:117-127 ``PoseCW.compose_right_inv_ij`` / cpp:170-178.
+    If T_cw maps cam_i->world and T_ji maps cam_i->cam_j (x_j = R_ji x_i + t_ji),
+    then T_cw' = T_cw ∘ T_ji^{-1} maps cam_j->world.
+    """
+    R_ij, t_ij = pose_inv(R_ji, t_ji)
+    return pose_compose(R_cw, t_cw, R_ij, t_ij)
+
+
+def se3_exp(xi):
+    """(...,6) twist [w | v] -> (R, t) with exact V(w) integration."""
+    w, v = xi[..., :3], xi[..., 3:]
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS)
+    small = theta2 < 1e-8
+    R = so3_exp(w)
+    W = hat(w)
+    W2 = W @ W
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / (theta2 + _EPS))
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta + _EPS))
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(R.shape)
+    V = eye + b[..., None, None] * W + c[..., None, None] * W2
+    return R, torch.einsum("...ij,...j->...i", V, v)
+
+
+def se3_log(R, t):
+    """(R, t) -> (...,6) twist [w | v]."""
+    w = so3_log(R)
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS)
+    W = hat(w)
+    W2 = W @ W
+    small = theta2 < 1e-8
+    # V^{-1} = I - W/2 + (1/theta^2)(1 - a/(2b)) W^2,  a=sinc, b=(1-cos)/t^2
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / (theta2 + _EPS))
+    coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                       (1.0 - a / (2.0 * b)) / (theta2 + _EPS))
+    eye = torch.eye(3, dtype=R.dtype, device=R.device).expand(R.shape)
+    Vinv = eye - 0.5 * W + coef[..., None, None] * W2
+    v = torch.einsum("...ij,...j->...i", Vinv, t)
+    return torch.cat([w, v], dim=-1)
+
+
+def rvec_from_R(R):
+    """Alias matching the reference exporter naming (cpp so3.hpp:20-23)."""
+    return so3_log(R)

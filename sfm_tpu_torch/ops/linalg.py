@@ -68,6 +68,16 @@ def jacobi_eigh(A, sweeps: int = 18):
     return w, V
 
 
+def smallest_eigvec_sym(A):
+    """Unit eigenvector of the smallest eigenvalue of symmetric A (...,n,n).
+
+    Used for 8-point null vectors (A^T A, 9x9) and DLT triangulation (4x4),
+    replacing jacobi_eig_sym calls at cpp:626, cpp:1504.
+    """
+    _, vecs = jacobi_eigh(A)
+    return vecs[..., :, 0]
+
+
 def onesided_jacobi(A, sweeps: int = 12):
     """Batched one-sided Jacobi SVD core: orthogonalizes the n columns of
     A (...,m,n) by plane rotations accumulated into V.

@@ -1,16 +1,20 @@
-"""Umeyama Sim(3)/SE(3) alignment and ATE metrics.
+"""Umeyama Sim(3)/SE(3) alignment, ATE and relative-edge metrics.
 
 Counterpart of sfm_tpu/ops/umeyama.py (reference: cpp/tools/
-ate_keyframes.cpp:334-389 ``umeyama``).  Computed in float64 whatever the
-inputs' dtype: these are the accuracy-critical reductions that grade a
-run.
+ate_keyframes.cpp:334-389 ``umeyama``, cpp/tools/gt_keyframe_edge.cpp:
+333-384 relative-edge errors).  ``umeyama`` and ``ate`` compute in float64
+whatever the inputs' dtype: these are the accuracy-critical reductions
+that grade a run.  ``edge_errors`` keeps its inputs' dtype, as the JAX
+twin does.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from sfm_tpu_torch.ops import linalg
+from sfm_tpu_torch.ops import lie, linalg
 
 
 def umeyama(src, dst, with_scale: bool = True):
@@ -63,3 +67,17 @@ def ate(est, gt, with_scale: bool = True):
         "per_point": err,
         "scale": s,
     }
+
+
+def edge_errors(R_est, t_est, R_gt, t_gt):
+    """Relative-edge rotation error (deg) and translation-direction error
+    (deg, min vs ±GT direction) — ref gt_keyframe_edge.cpp:377-384."""
+    dR = R_est @ R_gt.transpose(-1, -2)
+    rot_err = (torch.linalg.vector_norm(lie.so3_log(dR), dim=-1)
+               * (180.0 / math.pi))
+    a = t_est / (torch.linalg.vector_norm(t_est, dim=-1, keepdim=True)
+                 + 1e-18)
+    b = t_gt / (torch.linalg.vector_norm(t_gt, dim=-1, keepdim=True) + 1e-18)
+    c = torch.clamp(torch.abs(torch.sum(a * b, dim=-1)), 0.0, 1.0)
+    trans_err = torch.arccos(c) * (180.0 / math.pi)
+    return rot_err, trans_err

@@ -372,6 +372,76 @@ def test_torch_disparity_on_card_matches_cpu(rng):
     assert np.percentile(np.abs(dc - dg)[both], 99) <= 0.05
 
 
+@pytest.mark.gpu
+def test_torch_helpers_on_card_match_cpu(rng):
+    """The nine public helpers off the pipeline path (lie: quat_to_rot,
+    compose_right_inv_ij, se3_exp, se3_log, rvec_from_R; linalg:
+    smallest_eigvec_sym; umeyama: edge_errors; image: to_float,
+    patch_grid) on float64 inputs on the card against the same calls on
+    the CPU.  Products and sums only (quat_to_rot, compose_right_inv_ij):
+    1e-13, a few ulps with fused multiply-adds.  The Jacobi sweeps'
+    rotations (square roots and divisions) settle where the CPU's do to
+    1e-10 where the eigen-gap exceeds 0.05.  The transcendental ones
+    (CUDA's sin/cos/arccos against ATen's CPU ones, an ulp or two apart):
+    1e-11 on se3_exp and 1e-12 on rotation vectors; 1e-7 on se3_log,
+    whose (1 - a/(2b))/theta^2 just above the small-angle switch
+    (theta = 2e-4) moves by 0.14 of its 1/12 for an ulp of cos(theta)
+    (it multiplies W^2 ~ 4e-8 and |t| ~ 3); and 5e-6 degrees on the edge
+    errors, where arccos near 1 turns an ulp of its argument into
+    sqrt(2 ulp) = 1.5e-8 rad = 8.5e-7 degrees.  Integers (to_float,
+    patch_grid): equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sfm_tpu_torch.ops import image, lie, linalg, umeyama
+
+    dev = torch.device("cuda")
+
+    def both(fn, *args, atol):
+        cpu = fn(*(torch.as_tensor(a) for a in args))
+        card = fn(*(torch.as_tensor(a).to(dev) for a in args))
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        card = card if isinstance(card, tuple) else (card,)
+        for c, g in zip(cpu, card):
+            assert g.is_cuda and g.dtype == c.dtype == torch.float64
+            np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=0,
+                                       atol=atol, err_msg=fn.__name__)
+
+    n = 32
+    q = rng.standard_normal((n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    axes = rng.standard_normal((n, 3))
+    axes /= np.linalg.norm(axes, axis=-1, keepdims=True)
+    # angles on both sides of the small-angle switch (theta^2 = 1e-8),
+    # generic ones and ones inside so3_log's near-pi branch
+    theta = np.concatenate([[0.0, 0.5e-4, 2e-4, np.pi - 2e-4],
+                            rng.uniform(0, np.pi * 0.98, n - 4)])
+    xi = np.concatenate([axes * theta[:, None],
+                         rng.standard_normal((n, 3))], -1)
+    R, t = (a.numpy() for a in lie.se3_exp(torch.as_tensor(xi)))
+    R2, t2 = R[::-1].copy(), rng.standard_normal((n, 3))
+    both(lie.quat_to_rot, q, atol=1e-13)
+    both(lie.compose_right_inv_ij, R, t, R2, t2, atol=1e-13)
+    both(lie.se3_exp, xi, atol=1e-11)
+    both(lie.se3_log, R, t, atol=1e-7)
+    both(lie.rvec_from_R, R, atol=1e-12)
+    both(umeyama.edge_errors, R, t, R2, t2, atol=5e-6)
+    both(umeyama.edge_errors, R, t, R, -t, atol=5e-6)
+    for k in (4, 9):
+        A = rng.standard_normal((20, k, k))
+        A = A + A.transpose(0, 2, 1)
+        w = np.linalg.eigvalsh(A)
+        ok = (w[:, 1] - w[:, 0]) > 0.05
+        both(linalg.smallest_eigvec_sym, A[ok], atol=1e-10)
+    img = rng.integers(0, 256, (48, 64), dtype=np.uint8)
+    f = image.to_float(torch.as_tensor(img, device=dev))
+    assert f.is_cuda and f.dtype == torch.float32
+    assert torch.equal(f.cpu(), image.to_float(torch.as_tensor(img)))
+    for r in (0, 1, 3, 6):
+        for dt in (torch.float32, torch.float64):
+            g = image.patch_grid(r, dt, device=dev)
+            assert g.is_cuda and torch.equal(g.cpu(), image.patch_grid(r, dt))
+
+
 def _scene_step_rank(d: dict) -> dict:
     """Rank 0 of a one-rank NCCL group: ``make_scene_step`` on two scenes,
     and the same stages called on the same tensors without the group.

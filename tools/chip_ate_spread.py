@@ -1,13 +1,15 @@
-"""How far the trajectory error of the 47-frame ring moves with the RANSAC
-draws alone, on a CUDA card.
+"""How far the trajectory error and the keyframe-edge errors of the 47-frame
+ring move with the RANSAC draws alone, on a CUDA card.
 
 The pipeline is chaotic: one track more or less at one frame moves every
 later pose.  This runs ``chip_smoke.py``'s ring47 configuration
 (``smoke_config()``, ``ring_spec()``) through ``ScanSfM`` and through
 ``SfMSystem`` once per RANSAC seed and prints one JSON line per run (Sim(3)
-ATE over the trajectory's extent, keyframes, map points, loop edges, wall
-seconds), then the card's name and power limit.  The spread over seeds is
-the yardstick for an ATE difference between two runs that do not share
+ATE over the trajectory's extent, keyframes, map points, loop edges, the
+keyframe edges' median and max rotation and direction errors against GT
+as ``chip_smoke.edge_errors_on_card`` computes them, wall seconds), then
+the card's name and power limit.  The spread over seeds is the yardstick
+for an ATE or edge-error difference between two runs that do not share
 their draws (PERF.md, Findings).
 
     python3 tools/chip_ate_spread.py --seeds 12345 12346 12347 12348 12349
@@ -64,6 +66,7 @@ def main() -> int:
                     "keyframes": info["keyframes"],
                     "map_points": info["map_points"],
                     "loop_edges": [(e.i, e.j) for e in s.edges if e.is_loop],
+                    **cs.edge_errors_on_card(dev, s, ds),
                     "wall_s": dt}), flush=True)
     print(cs.nvidia_smi_line(), flush=True)
     return 0
