@@ -109,9 +109,16 @@ def ba_cost(p: BAProblem, huber_delta: float) -> torch.Tensor:
     rho = torch.clamp(rho, max=cap)
     # observations behind the camera get the worst-case penalty so LM
     # steps that push points behind a camera are rejected
-    behind = torch.where(p.obs_valid, 2.0 * cap + 1.0, 0.0).to(rho.dtype)
+    # in rho's dtype: a float64 cost keeps the penalty's float64 value
+    behind = (2.0 * cap + 1.0) * p.obs_valid.to(rho.dtype)
     rho = torch.where(z_ok, rho, behind)
     return torch.sum(torch.where(p.obs_valid, rho, torch.zeros_like(rho)))
+
+
+# The JAX package's scalar-lane (SoA) twin of its tensor-form cost.  The
+# port's ba_cost already computes in (M,) lanes, so the two names are one
+# function here.
+ba_cost_soa = ba_cost
 
 
 def _segment_plan(seg, keep, n_seg: int):

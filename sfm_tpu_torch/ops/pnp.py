@@ -35,7 +35,8 @@ def pnp_cost(R_wc, t_wc, X, obs, valid, huber_delta):
     rho = torch.where(n <= huber_delta, quad, lin)
     cap = huber_delta * (_CUTOFF * huber_delta - 0.5 * huber_delta)
     rho = torch.clamp(rho, max=cap)
-    behind = torch.where(valid, 2.0 * cap + 1.0, 0.0).to(rho.dtype)
+    # in rho's dtype: a float64 cost keeps the penalty's float64 value
+    behind = (2.0 * cap + 1.0) * valid.to(rho.dtype)
     rho = torch.where(z_ok, rho, behind)
     return torch.sum(torch.where(valid, rho, torch.zeros_like(rho)), dim=-1)
 

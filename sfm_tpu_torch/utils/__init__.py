@@ -1,0 +1,1 @@
+from sfm_tpu_torch.utils import artifacts, dataset, synthetic  # noqa: F401

@@ -289,3 +289,37 @@ def test_torch_to_float_matches_jax(rng):
     assert image.to_float(img).dtype == torch.float32
     f64 = image.to_float(torch.as_tensor(img, dtype=torch.float64))
     assert f64.dtype == torch.float32 and torch.equal(f64, out)
+
+
+def test_torch_packages_bind_their_submodules():
+    """``import sfm_tpu_torch.ops`` / ``sfm_tpu_torch.utils`` bind every
+    submodule that ``sfm_tpu.ops`` / ``sfm_tpu.utils`` bind at import (the
+    port's extras: its kernel wrappers and its device helper), each in a
+    fresh interpreter; the port's imports no jax and build no kernel."""
+    import ast
+    import subprocess
+    import sys
+
+    code = ("import sys, types\n"
+            "import {p}.ops as o, {p}.utils as u\n"
+            "print(*(sorted(n for n, v in vars(m).items()\n"
+            "              if isinstance(v, types.ModuleType))\n"
+            "        for m in (o, u)), sep='|')\n"
+            "print('jax' in sys.modules)\n")
+    tail = ("from sfm_tpu_torch.ops.kernels import build\n"
+            "print(build._lib is None)\n")
+    got = {}
+    for pkg in ("sfm_tpu", "sfm_tpu_torch"):
+        out = subprocess.run(
+            [sys.executable, "-c", code.format(p=pkg)
+             + (tail if pkg == "sfm_tpu_torch" else "")],
+            capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        got[pkg] = out.stdout.split("\n")
+    for jax_names, port_names in zip(got["sfm_tpu"][0].split("|"),
+                                     got["sfm_tpu_torch"][0].split("|")):
+        jax_set = set(ast.literal_eval(jax_names))
+        port_set = set(ast.literal_eval(port_names))
+        assert jax_set <= port_set
+        assert port_set - jax_set <= {"kernels", "device"}
+    assert got["sfm_tpu_torch"][1:3] == ["False", "True"]

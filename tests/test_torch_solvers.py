@@ -455,6 +455,58 @@ def test_torch_bundle_adjust_matches_jax(rng):
     np.testing.assert_array_equal(Xf.numpy(), leaves["X"])
 
 
+def test_torch_ba_cost_soa_matches_jax(rng):
+    """``ba_cost_soa`` on tests/test_ba.py:60-77's problem (every regime of
+    the robust cost: inliers, Huber tail, gross outlier, a point behind
+    every camera, invalid observations), float64 on both sides: equal to
+    JAX's ``ba_cost_soa`` and its tensor-form ``ba_cost`` within 1e-12
+    relative (the same sums, in another order)."""
+    from test_ba import make_ba_problem as make_jax_ba_problem
+
+    prob, *_ = make_jax_ba_problem(rng, noise=1e-3)
+    obs = np.asarray(prob.obs).copy()
+    obs[5] += 0.5        # gross outlier (past _CUTOFF*delta)
+    obs[17] += 0.03      # Huber linear tail
+    X = np.asarray(prob.X).copy()
+    X[3] = [0.0, 0.0, -5.0]  # behind every camera
+    obs_valid = np.asarray(prob.obs_valid).copy()
+    obs_valid[40:60] = False
+    leaves = {k: np.asarray(v) for k, v in prob._asdict().items()}
+    leaves.update(obs=obs, X=X, obs_valid=obs_valid)
+    assert leaves["X"].dtype == np.float64
+    pj = jba.BAProblem(**{k: jnp.asarray(v) for k, v in leaves.items()})
+    pt = ba.BAProblem(**{k: torch.as_tensor(v) for k, v in leaves.items()})
+    for delta in (1e-2, 2e-3):
+        c_soa = float(jba.ba_cost_soa(pj, delta))
+        c_t = ba.ba_cost_soa(pt, delta)
+        assert c_t.dtype == torch.float64
+        assert float(c_t) == pytest.approx(c_soa, rel=1e-12)
+        assert float(c_t) == pytest.approx(float(jba.ba_cost(pj, delta)),
+                                           rel=1e-12)
+
+
+def test_torch_pnp_cost_float64_matches_jax(rng):
+    """``pnp_cost`` in float64 with every regime of the robust cost
+    (inliers, Huber tail, gross outlier, points behind the camera, invalid
+    observations): equal to JAX's within 1e-12 relative, the behind-camera
+    penalty (2 cap + 1) kept in float64 as JAX keeps it."""
+    R, t, X, obs = make_pnp(rng, n=60, noise=1e-3)
+    obs[5] += 0.5        # gross outlier
+    obs[17] += 0.03      # Huber linear tail
+    X[3] = [0.0, 0.0, -5.0]  # behind the camera
+    X[9] = [0.1, 0.2, -3.0]
+    valid = np.ones(60, bool)
+    valid[40:50] = False
+    for delta in (1e-2, 2e-3):
+        cj = float(jpnp.pnp_cost(jnp.asarray(R), jnp.asarray(t),
+                                 jnp.asarray(X), jnp.asarray(obs),
+                                 jnp.asarray(valid), delta))
+        ct = pnp.pnp_cost(*(torch.as_tensor(a) for a in (R, t, X, obs)),
+                          torch.as_tensor(valid), delta)
+        assert ct.dtype == torch.float64
+        assert float(ct) == pytest.approx(cj, rel=1e-12)
+
+
 def test_torch_bundle_adjust_refuses_large_problems():
     """F*P > 8192 no longer raises: such a problem takes the AoS path
     (held to the JAX package in tests/test_torch_ba_aos.py).  With no valid
