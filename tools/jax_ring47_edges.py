@@ -17,7 +17,7 @@ labels a draw on each side, and ``tools/chip_ate_spread.py`` compares the
 two distributions.
 
     JAX_PLATFORMS=cpu python tools/jax_ring47_edges.py [scan] [host] \
-        [--seeds 12345 12346 ...]
+        [--seeds 12345 12346 ...] [--ring-seeds 7 8 ...] [--dump DIR]
 
 One run takes about 6 min (``scan``) or 9 min (``host``) alone on an
 8-core x86 CPU, and about twice that with three such processes side by
@@ -99,6 +99,9 @@ def main() -> int:
     ap.add_argument("pipelines", nargs="*", default=["scan", "host"],
                     help="scan (ScanSfM) and/or host (SfMSystem)")
     ap.add_argument("--seeds", type=int, nargs="+", default=[12345])
+    ap.add_argument("--ring-seeds", type=int, nargs="+", default=None,
+                    help="texture seeds of the ring (default: the ring's "
+                         "own), as tools/chip_ate_spread.py --ring-seeds")
     ap.add_argument("--dump", metavar="DIR", default=None,
                     help="also write each ScanSfM run's metrics rows and "
                          "keyframe centres to DIR/scan<seed>.json, as "
@@ -107,17 +110,23 @@ def main() -> int:
     rec = chip_ate_spread.record_runs(jsp) if args.dump else None
     if not set(args.pipelines) <= {"scan", "host"}:
         ap.error("pipelines are scan and host")
-    spec = SyntheticRingSpec(**dataclasses.asdict(cs.ring_spec()))
-    with tempfile.TemporaryDirectory(prefix="jax_ring47_") as tmp:
-        generate_dataset(Path(tmp), spec, name_prefix="templeR")
-        ds = TempleRing.from_dir(Path(tmp))
-        for w in args.pipelines:
-            for seed in args.seeds:
-                s, line = run(w, ds, seed, Path(tmp) / f"{w}{seed}")
-                print(json.dumps(line), flush=True)
-                if rec is not None and w == "scan":
-                    chip_ate_spread.dump_run(
-                        Path(args.dump) / f"scan{seed}.json", s, rec)
+    ring0 = cs.ring_spec().seed
+    for ring in args.ring_seeds or [ring0]:
+        spec = SyntheticRingSpec(**{**dataclasses.asdict(cs.ring_spec()),
+                                    "seed": ring})
+        suffix = "" if ring == ring0 else f"_ring{ring}"
+        with tempfile.TemporaryDirectory(prefix="jax_ring47_") as tmp:
+            generate_dataset(Path(tmp), spec, name_prefix="templeR")
+            ds = TempleRing.from_dir(Path(tmp))
+            for w in args.pipelines:
+                for seed in args.seeds:
+                    s, line = run(w, ds, seed, Path(tmp) / f"{w}{seed}")
+                    print(json.dumps({**line, "ring_seed": ring}),
+                          flush=True)
+                    if rec is not None and w == "scan":
+                        chip_ate_spread.dump_run(
+                            Path(args.dump) / f"scan{seed}{suffix}.json", s,
+                            rec)
     return 0
 
 
