@@ -60,6 +60,24 @@ Phases, one JSON line each on standard output:
             configuration (loop closure verified on the host), one K3
             launch per level and direction for all four scenes; then the
             first ring alone through ScanSfM, which scene 0 must match;
+  variants  bench.py's other configurations through the port, one line a
+            run, each beside the JAX package's CPU figures
+            (VARIANTS_JAX_CPU, tools/jax_ring47_edges.py) and the card's
+            name and power limit: ring94_stockgate (bench_dense_variant's
+            94-frame ring at the stock keyframe gate, where the gate skips
+            every other frame and the keyframe branch solves its own edge
+            LO-RANSAC; a second run on the JAX package's draws, its
+            keyframe frames against the JAX run's under the same draws),
+            ring47_structured_stock (bench_stock_thresholds: the stock
+            thresholds on the structured-texture ring, the 0.94 loop gate
+            must fire), ring47_gtscale (bench_gtscale_se3: use_gt_scale,
+            graded in Sim(3) and SE(3)), pair1024_hyp4096 (bench_hyp4096's
+            pair stage: 2-level LK and 4096 LO-RANSAC hypotheses, pairs/s,
+            and K3 at that shape against its plain version) and
+            ring94x2_stockgate (run_scenes_scan over two stock-gate rings
+            whose scenes keyframe on alternate frames, the first
+            X2_FRAMES frames of each, scene 0 against ScanSfM of its
+            ring); the ScanSfM runs go side by side, a process each;
   mesh      the dense stereo mesh (models.mesh.export_stereo_grid_mesh at
             the StereoMeshConfig defaults: 128 disparities, block 7, SGM)
             on a rendered 640x480 pair of the ring's texture 3 degrees
@@ -94,7 +112,9 @@ non-zero exit code and no result line.  ``--only kernels`` stops after the
 kernel phase (a short first check of a changed kernel); ``--only
 ate_seeds`` runs the build and then the pipeline and ate_seeds phases
 alone, without the kernel checks (the seed-spread bar on a changed tree,
-whatever its kernels say), and prints no result line.  ``--profile`` adds
+whatever its kernels say), and prints no result line; ``--only variants``
+runs the build and then the variants phase alone, and prints no result
+line either.  ``--profile`` adds
 a ``profile`` line: frames 1..4 of the ring twice more, plain for the wall
 time and under ``torch.profiler`` for the device's busy time, with the
 estimated idle share and the operators that took most device and most host
@@ -150,7 +170,14 @@ SCENE_FRAMES = (0, 12, 24, 36)
 BF16_SEED = 10
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``script_s``, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -209,6 +236,50 @@ def ring_spec():
         n_frames=FRAMES, width=640, height=480, fx=1520.0, fy=1520.0,
         cylinder_radius=0.10, cylinder_zmin=-0.10, cylinder_zmax=0.10,
         ring_radius=0.60, ring_z=0.05, arc_deg=360.0, texture_blur=1.5)
+
+
+# bench.py's bench_dense_variant ring: 94 cameras whose steps alternate a
+# small one of 2.4 degrees and a large one chosen so that the path ends at
+# 360 degrees, so the stock 18-px keyframe gate skips about every other frame
+STOCKGATE_FRAMES = 94
+STOCKGATE_SMALL_DEG = 2.4
+
+
+def stockgate_lons(large_first: bool = False) -> np.ndarray:
+    """The camera longitudes (degrees) of bench.py's bench_dense_variant
+    ring, bit for bit its arithmetic: steps (small, large, small, ...), or
+    (large, small, ...) with ``large_first``, the large step recomputed for
+    that order so that the path still ends at 360 degrees."""
+    a = STOCKGATE_SMALL_DEG
+    n_inc = STOCKGATE_FRAMES - 1
+    n_first, n_second = (n_inc + 1) // 2, n_inc // 2
+    n_large, n_small = ((n_first, n_second) if large_first
+                        else (n_second, n_first))
+    b = (360.0 - n_small * a) / n_large
+    pattern = ([b, a] if large_first else [a, b]) * ((n_inc + 1) // 2)
+    return np.concatenate([[0.0], np.cumsum(pattern[:n_inc])])
+
+
+def stockgate_spec(large_first: bool = False, seed: int | None = None):
+    """The ring of ``stockgate_lons`` at ring_spec()'s camera and cylinder
+    (bench.py bench_dense_variant), texture seed ``seed`` (default 7)."""
+    import dataclasses
+
+    lons = stockgate_lons(large_first=large_first)
+    spec = dataclasses.replace(ring_spec(), n_frames=len(lons),
+                               path_lons_deg=tuple(lons))
+    return spec if seed is None else dataclasses.replace(spec, seed=seed)
+
+
+def structured_spec():
+    """bench.py bench_stock_thresholds' ring: 47 cameras from 0 to 359
+    degrees over the structured texture, whose 32x32 global descriptors
+    score >= 0.94 at a true revisit, so the stock loop gate can fire."""
+    import dataclasses
+
+    return dataclasses.replace(
+        ring_spec(), path_lons_deg=tuple(np.linspace(0.0, 359.0, FRAMES)),
+        texture_kind="structured")
 
 
 # ---------------------------------------------------------------------------
@@ -429,9 +500,10 @@ def lk_step_chain(level, p, v, good, tol, gap_factor):
 
 
 def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level, radius=RADIUS,
-                   T=T_TRACKS, timed=True) -> dict:
+                   T=T_TRACKS, timed=True, levels=LEVELS) -> dict:
     """K3 (or, with ``level=k4_level``, K4) against the plain version on
-    all four levels at patch radius ``radius`` with ``T`` tracks: non-zero
+    the first ``levels`` levels (all four by default) at patch radius
+    ``radius`` with ``T`` tracks: non-zero
     incoming flow, half of the tracks within one search window of a
     border, and a second run with 40 % NaN positions.  ``timed=False``
     checks only and returns a short summary.
@@ -459,7 +531,8 @@ def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level, radius=RADIUS,
       about one border track in a thousand passes as stable while a change
       of summation order or a rounding of its position moves it by more
       than 1e-3 px.
-    - Over the check's eight cells (4 levels, 2 NaN shares), the kernel
+    - Over the check's cells (eight at 4 levels: each level at 2 NaN
+      shares), the kernel
       ends more than 1e-3 px from the plain version on no more border
       tracks than the plain version's gap exceeds 1e-3 px on.  (At 512
       tracks a cell holds some 10 such tracks, and a count of one cell
@@ -496,7 +569,7 @@ def check_lk_level(dev, rng, pyr0, pyr1, level=k3_level, radius=RADIUS,
     per_level = []
     ms_levels = []
     plain_ms = ms_by_iters = None
-    for L in range(LEVELS):
+    for L in range(levels):
         H, W = pyr0[L].shape
         flow = np.array(SHIFT_XY, np.float32) / 2 ** L
         for nan_frac in (0.0, 0.4):
@@ -1129,22 +1202,84 @@ def smoke_config():
     return load_config(None, overrides=SMOKE_OVERRIDES)
 
 
+# the overrides of bench.py's other configurations (load_config with no
+# file, as bench.py's missing config.json gives):
+# - stockgate94: bench_dense_variant, bench_config(94) = SMOKE_OVERRIDES
+#   at 94 frames, the stock keyframe gate (18 px, min_gap 1, 200 inliers);
+# - structured_stock: bench_stock_thresholds, the stock Sampson 1e-3,
+#   loop score 0.94, 100-inlier loop verification and 5 BA iterations;
+# - gtscale: bench_gtscale_se3, SMOKE_OVERRIDES with use_gt_scale.
+VARIANT_OVERRIDES = {
+    "stockgate94": {**SMOKE_OVERRIDES, "frames": STOCKGATE_FRAMES},
+    "structured_stock": {"frames": FRAMES, "klt.pyr_levels": LEVELS,
+                         "klt.iters": ITERS, "klt.win_radius": RADIUS,
+                         "ransac.num_hypotheses": 1024},
+    "gtscale": {**SMOKE_OVERRIDES, "use_gt_scale": True},
+}
+# bench.py bench_hyp4096's pair stage: HYP_TRACKS tracks drawn uniformly
+# in [40, 600) x [40, 440) by np.random.default_rng(HYP_SEED) on frames 0
+# and 1 of ring_spec(), HYP_LEVELS pyramid levels, HYP_H hypotheses; the
+# JAX bench's first call draws from jax.random.PRNGKey(HYP_SEED)
+HYP_TRACKS, HYP_LEVELS, HYP_H, HYP_SEED = 1024, 2, 4096, 0
+HYP_SAMPSON, HYP_MIN_INLIERS, HYP_REPS = 2e-5, 30, 20
+
+
+def hyp_tracks() -> np.ndarray:
+    """bench_hyp4096's (HYP_TRACKS, 2) float32 track positions."""
+    rng = np.random.default_rng(HYP_SEED)
+    return rng.uniform([40, 40], [600, 440], (HYP_TRACKS, 2)).astype(
+        np.float32)
+
+
+def keyframe_cadence(kf_frames, n_frames: int) -> dict:
+    """A run's keyframe frame indices, the frames the gate skipped, and
+    ``edge_ransac_runs``: the keyframes whose previous keyframe is not the
+    previous frame (the keyframe branch then solves its own edge
+    LO-RANSAC against the ring snapshot instead of reusing the frame's
+    two-view result)."""
+    kf = [int(f) for f in kf_frames]
+    return {"kf_frames": kf, "skipped_frames": n_frames - len(kf),
+            "edge_ransac_runs": sum(b - a != 1 for a, b in zip(kf, kf[1:]))}
+
+
+def gtscale_grades(ate_fn, est, gt) -> dict:
+    """bench_gtscale_se3's grades of keyframe centres ``est`` against their
+    GT centres ``gt`` (float64): the Sim(3) and SE(3) ATE (RMSE, and RMSE
+    over the extent of those GT centres) over all keyframes and over the
+    first 4 (suffix ``_n4``, the reference's published regime), and the
+    Sim(3) alignment scale.  ``ate_fn(est, gt, with_scale)`` -> (RMSE,
+    scale) is a package's ``umeyama.ate``."""
+    out = {}
+    for sfx, n in (("", len(est)), ("_n4", 4)):
+        e, g = np.asarray(est[:n], np.float64), np.asarray(gt[:n], np.float64)
+        extent = float(np.linalg.norm(g - g.mean(0), axis=1).max())
+        for tag, with_scale in (("sim3", True), ("se3", False)):
+            rmse, scale = ate_fn(e, g, with_scale)
+            out[f"ate_{tag}{sfx}"] = rmse
+            out[f"ate_ratio_{tag}{sfx}"] = rmse / extent
+            if with_scale:
+                out[f"alignment_scale{sfx}"] = scale
+    return out
+
+
 def sync(dev) -> None:
     """torch.cuda.synchronize() when ``dev`` is a CUDA device."""
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
 
 
-def run_pipeline(dev, K, frames, names, out_dir, cfg=None, pri_source=None):
+def run_pipeline(dev, K, frames, names, out_dir, cfg=None, pri_source=None,
+                 gt_records=None):
     """ScanSfM.process over ``frames``, then finalize and export.
     ``pri_source``: optional frame -> (pri_frame, pri_edge) RANSAC draws in
-    place of the carry's generator (tools/jax_draws.py).  ``dev`` may be
-    the CPU (tools/chip_ate_spread.py --device cpu)."""
+    place of the carry's generator (tools/jax_draws.py).  ``gt_records``:
+    the dataset's records, for ``cfg.use_gt_scale``.  ``dev`` may be the
+    CPU (tools/chip_ate_spread.py --device cpu)."""
     from sfm_tpu_torch.models.scan_pipeline import ScanSfM
 
     cfg = cfg or smoke_config()
-    s = ScanSfM(K, cfg, n_frames=FRAMES, chunk=32, p_cap=16384, p_ba=1024,
-                device=dev)
+    s = ScanSfM(K, cfg, n_frames=len(frames), chunk=32, p_cap=16384,
+                p_ba=1024, gt_records=gt_records, device=dev)
     s._pri_source = pri_source
     sync(dev)
     t0 = time.perf_counter()
@@ -1179,22 +1314,33 @@ def time_host_stages(s) -> dict:
     return {"pose_graph_solve_s": t1 - t0, "finalize_refine_s": t2 - t1}
 
 
-def ring_dataset(tmp: Path, texture_seed: int | None = None):
-    """The 47-frame ring rendered under ``tmp``: (dataset, frames, names).
-    ``texture_seed``: another seed of the cylinder's texture (the cameras
-    stay where they are)."""
+# the 47-frame rings rendered so far in this process, by texture seed (None:
+# the ring's own): each is rendered once and kept until the process exits
+_RINGS: dict = {}
+
+
+def ring_dir(texture_seed: int | None = None) -> Path:
+    """The directory of the 47-frame ring (``texture_seed``: another seed
+    of the cylinder's texture, the cameras where they are), rendered at
+    the first call of this process."""
     import dataclasses
 
-    from sfm_tpu_torch.utils.dataset import TempleRing
     from sfm_tpu_torch.utils.synthetic import generate_dataset
 
-    spec = ring_spec()
-    if texture_seed is not None:
-        spec = dataclasses.replace(spec, seed=texture_seed)
-    generate_dataset(tmp / "templeRing", spec, name_prefix="templeR")
-    ds = TempleRing.from_dir(tmp / "templeRing")
-    return ds, [ds.load_gray(i) for i in range(FRAMES)], \
-        [r.img for r in ds.records]
+    if texture_seed not in _RINGS:
+        spec = ring_spec()
+        if texture_seed is not None:
+            spec = dataclasses.replace(spec, seed=texture_seed)
+        tmp = tempfile.TemporaryDirectory(prefix="sfm_ring47_")
+        generate_dataset(Path(tmp.name) / "templeRing", spec,
+                         name_prefix="templeR")
+        _RINGS[texture_seed] = tmp
+    return Path(_RINGS[texture_seed].name) / "templeRing"
+
+
+def ring_dataset(texture_seed: int | None = None):
+    """The 47-frame ring of ``ring_dir``: (dataset, frames, names)."""
+    return load_ring(ring_dir(texture_seed))
 
 
 def ate_ratio(kfs, ds) -> float:
@@ -1396,7 +1542,7 @@ def phase_pipeline(dev) -> tuple[dict, dict, tuple, dict]:
 
     with tempfile.TemporaryDirectory(prefix="sfm_smoke_") as tmp:
         tmp = Path(tmp)
-        ds, frames, names = ring_dataset(tmp)
+        ds, frames, names = ring_dataset()
 
         # warm-up run: builds nothing new, but pays every first-call cost;
         # at another seed, so that it is one of the ate_seeds phase's runs
@@ -1456,23 +1602,48 @@ def phase_pipeline(dev) -> tuple[dict, dict, tuple, dict]:
     return line, counts, (ds.K, s.kfs[0], s.map_xyz), warm
 
 
+def in_processes(calls) -> list:
+    """Each call ``(fn, *args)`` of ``calls`` in a spawned process of its
+    own, all at once: their results, in order.  A pipeline run is bound by
+    its host thread and leaves the card idle most of the time, so runs
+    side by side share the card; their walls are each taken beside the
+    others.  Every process has ended when this returns."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(
+            max_workers=len(calls),
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        futs = [ex.submit(*c) for c in calls]
+        return [f.result() for f in futs]
+
+
+def seed_job(seed: int, ring: str, out: str, device: str) -> dict:
+    """``seed_run`` on the ring rendered at ``ring``, its files under
+    ``out``, in a process of its own (``in_processes``)."""
+    import sfm_tpu_torch  # noqa: F401  (sets the precision policy)
+
+    with torch.no_grad():
+        ds, frames, names = load_ring(Path(ring))
+        return seed_run(torch.device(device), ds, frames, names,
+                        Path(out) / f"s{seed}", seed)
+
+
 def phase_ate_seeds(dev, first: dict, warm: dict) -> tuple[dict, dict]:
-    """ring47_full through ScanSfM at the RANSAC seeds ATE_SEEDS_EXTRA, in
-    the process the pipeline phase warmed up: with that phase's measured
-    run (``first``, its line, seed 12345) five draws of the port, whose
-    median ATE ratio must stay under ATE_SEED_MEDIAN_BAR, whose median
-    map size must stay above MAP_SEED_MEDIAN_BAR and each of which must
-    close the loop RING_LOOP_EDGE.  The first of the seeds
-    was that phase's warm-up run (``warm``, a ``seed_run``).  Printed
-    beside ATE_SEEDS_JAX_CPU's and with the one-sided p-value of the
-    port's being greater (ate_seed_stats)."""
-    runs = [warm]
+    """ring47_full through ScanSfM at the RANSAC seeds ATE_SEEDS_EXTRA:
+    with the pipeline phase's measured run (``first``, its line, seed
+    12345) five draws of the port, whose median ATE ratio must stay under
+    ATE_SEED_MEDIAN_BAR, whose median map size must stay above
+    MAP_SEED_MEDIAN_BAR and each of which must close the loop
+    RING_LOOP_EDGE.  The first of the seeds was that phase's warm-up run
+    (``warm``, a ``seed_run``); the others run side by side, a process
+    each (``in_processes``).  Printed beside ATE_SEEDS_JAX_CPU's and with
+    the one-sided p-value of the port's being greater
+    (ate_seed_stats)."""
     with tempfile.TemporaryDirectory(prefix="sfm_seeds_") as tmp:
-        tmp = Path(tmp)
-        ds, frames, names = ring_dataset(tmp)
-        for seed in ATE_SEEDS_EXTRA[1:]:
-            runs.append(seed_run(dev, ds, frames, names, tmp / f"s{seed}",
-                                 seed))
+        runs = [warm] + in_processes(
+            [(seed_job, seed, str(ring_dir()), tmp, str(dev))
+             for seed in ATE_SEEDS_EXTRA[1:]])
     launches = [r.pop("launches") for r in runs]
     ates = {smoke_config().ransac.seed: first["ate_ratio"],
             **{r["seed"]: r["ate_ratio"] for r in runs}}
@@ -1493,7 +1664,8 @@ def phase_ate_seeds(dev, first: dict, warm: dict) -> tuple[dict, dict]:
         "finite": all(r["finite"] for r in runs),
     }
     line = {"phase": "ate_seeds", "seeds": list(ates),
-            "ate_ratios": list(ates.values()), "runs": runs, **stats,
+            "ate_ratios": list(ates.values()), "runs": runs,
+            "concurrent_jobs": len(ATE_SEEDS_EXTRA) - 1, **stats,
             "jax_cpu_seeds": len(ATE_SEEDS_JAX_CPU["pipeline"]),
             "bar": ATE_SEED_MEDIAN_BAR,
             "port_card_seeds_median": _median(ATE_SEEDS_PORT_CARD.values()),
@@ -1517,7 +1689,7 @@ def phase_bf16(dev, ate_f32: float) -> tuple[dict, dict]:
 
     with tempfile.TemporaryDirectory(prefix="sfm_bf16_") as tmp:
         tmp = Path(tmp)
-        ds, frames, names = ring_dataset(tmp)
+        ds, frames, names = ring_dataset()
         reset_launches()
         n16 = lk.bf16_launches
         s, info, dt, dt_frames = with_env(
@@ -1820,7 +1992,6 @@ def phase_profile_scenes(dev, n_frames: int = 5) -> dict:
 
     from sfm_tpu_torch.parallel import multi_scan as ms
     from sfm_tpu_torch.utils.dataset import TempleRing
-    from sfm_tpu_torch.utils.synthetic import generate_dataset
 
     cfg = smoke_config()
     cuda = torch.autograd.DeviceType.CUDA
@@ -1886,7 +2057,7 @@ def phase_loop_ab(dev) -> dict:
     walls = {"off": [], "on": []}
     with tempfile.TemporaryDirectory(prefix="sfm_ab_") as tmp:
         tmp = Path(tmp)
-        ds, frames, names = ring_dataset(tmp)
+        ds, frames, names = ring_dataset()
         for arm in ("off", "on", "on", "off"):
             cfg = on if arm == "on" else off
             _, _, dt, _ = run_pipeline(dev, ds.K, frames, names,
@@ -1907,6 +2078,11 @@ def phase_loop_ab(dev) -> dict:
 # test_torch_wholerun_scan_orb_matches_jax; PERF.md, Findings): printed
 # beside this run's
 ORB_LOOP_EDGES_JAX_CPU = [[0, 46]]
+
+
+# the host phase's warm-up run: the ring's first frames (cut from 47: the
+# script must end inside its time limit; PERF.md section 4)
+HOST_WARM_FRAMES = 12
 
 
 def run_host(dev, ds, frames, out_dir, cfg=None):
@@ -1936,8 +2112,9 @@ def phase_host(dev) -> tuple[dict, dict]:
 
     with tempfile.TemporaryDirectory(prefix="sfm_host_") as tmp:
         tmp = Path(tmp)
-        ds, frames, _ = ring_dataset(tmp)
-        run_host(dev, ds, frames, tmp / "warm")
+        ds, frames, _ = ring_dataset()
+        # warm-up run (first-call costs), cut to HOST_WARM_FRAMES frames
+        run_host(dev, ds, frames[:HOST_WARM_FRAMES], tmp / "warm")
         reset_launches()
         s, info, dt, dt_frames = run_host(dev, ds, frames, tmp / "out")
         counts = read_launches()
@@ -2048,7 +2225,7 @@ def phase_orb(dev) -> tuple[dict, dict]:
                                                              method="orb"))
     with tempfile.TemporaryDirectory(prefix="sfm_orb_") as tmp:
         tmp = Path(tmp)
-        ds, frames, names = ring_dataset(tmp)
+        ds, frames, names = ring_dataset()
         reset_launches()
         s = ScanSfM(ds.K, cfg, n_frames=FRAMES, chunk=32, p_cap=16384,
                     p_ba=1024, device=dev)
@@ -2096,7 +2273,7 @@ def phase_orb_host(dev) -> tuple[dict, dict]:
                                                              method="orb"))
     with tempfile.TemporaryDirectory(prefix="sfm_orb_host_") as tmp:
         tmp = Path(tmp)
-        ds, frames, _ = ring_dataset(tmp)
+        ds, frames, _ = ring_dataset()
         reset_launches()
         s, info, dt, _ = run_host(dev, ds, frames, tmp / "out", cfg)
         counts = read_launches()
@@ -2138,16 +2315,13 @@ def phase_multiscene(dev) -> tuple[dict, dict]:
     from sfm_tpu_torch.models.scan_pipeline import ScanSfM
     from sfm_tpu_torch.parallel.multi_scan import run_scenes_scan
     from sfm_tpu_torch.utils.dataset import TempleRing
-    from sfm_tpu_torch.utils.synthetic import generate_dataset
 
     cfg = smoke_config()
     with tempfile.TemporaryDirectory(prefix="sfm_ms_") as tmp:
         tmp = Path(tmp)
-        dss = []
-        for s in range(S_SCENES):
-            spec = dataclasses.replace(ring_spec(), seed=ring_spec().seed + s)
-            generate_dataset(tmp / f"scene{s}", spec, name_prefix="templeR")
-            dss.append(TempleRing.from_dir(tmp / f"scene{s}"))
+        dss = [TempleRing.from_dir(ring_dir(None if s == 0 else
+                                            ring_spec().seed + s))
+               for s in range(S_SCENES)]
         images = [[d.load_gray(i) for i in range(FRAMES)] for d in dss]
         reset_launches()
         torch.cuda.synchronize()
@@ -2216,6 +2390,517 @@ def phase_multiscene(dev) -> tuple[dict, dict]:
         "checks": checks, "ok": all(checks.values()),
     }
     return line, counts
+
+
+# ---------------------------------------------------------------------------
+# phase: variants (bench.py's other configurations)
+# ---------------------------------------------------------------------------
+
+# the JAX package's figures for the variants phase's runs, on an 8-core x86
+# CPU (JAX_PLATFORMS=cpu), its own draws at the configuration's seed:
+# tools/jax_ring47_edges.py stockgate94 structured_stock gtscale hyp4096,
+# the lines of docs/bench_variants/jax_cpu.jsonl (keyframe frames written
+# as the ranges they are)
+VARIANTS_JAX_CPU = {
+    "stockgate94": {
+        "seed": 12345, "frames": 94, "keyframes": 47,
+        "kf_frames": list(range(0, 94, 2)), "skipped_frames": 47,
+        "edge_ransac_runs": 46, "map_points": 6662, "loop_edges": [(0, 46)],
+        "ate_ratio": 0.0018342450407897672},
+    "structured_stock": {
+        "seed": 12345, "frames": 47, "keyframes": 47,
+        "kf_frames": list(range(47)), "skipped_frames": 0,
+        "edge_ransac_runs": 0, "map_points": 6863, "loop_edges": [(0, 46)],
+        "ate_ratio": 0.00202740903687451},
+    "gtscale": {
+        "seed": 12345, "frames": 47, "keyframes": 47,
+        "kf_frames": list(range(47)), "skipped_frames": 0,
+        "edge_ransac_runs": 0, "map_points": 9829, "loop_edges": [(0, 46)],
+        "ate_ratio": 0.004506760313352905,
+        "ate_sim3": 0.0027040561880117444,
+        "ate_ratio_sim3": 0.004506760313352905,
+        "alignment_scale": 1.0019482996729545,
+        "ate_se3": 0.0029450121844532408,
+        "ate_ratio_se3": 0.004908353640755399,
+        "ate_sim3_n4": 0.00017139509838410332,
+        "ate_ratio_sim3_n4": 0.001432699213465162,
+        "alignment_scale_n4": 1.0002197238886685,
+        "ate_se3_n4": 0.00017251387687014494,
+        "ate_ratio_se3_n4": 0.0014420511323479381},
+    "hyp4096": {
+        "seed": 0, "hypotheses": 4096, "pyr_levels": 2, "tracks": 1024,
+        "inliers": 153, "tracked": 162,
+        "R": [[0.9999699592590332, -0.000927238492295146,
+               0.007692824117839336],
+              [0.000930521753616631, 0.9999994039535522,
+               -0.00040915131103247404],
+              [-0.0076925065368413925, 0.00041631306521594524,
+               0.9999703764915466]],
+        "t": [-0.8197349905967712, 0.08207245916128159, 0.5668320655822754],
+        "rot_err_gt_deg": 7.215973032091372,
+        "dir_err_gt_deg": 31.220524490236777},
+}
+
+# the variants phase's bars (PERF.md section 2)
+STOCKGATE_SKIPPED_MIN = 31     # the stock gate must skip a third of 94
+KEYFRAME_SHARE_TOL = 0.10      # keyframes within 10 % of the JAX package's
+GTSCALE_SCALE_RANGE = (0.95, 1.05)  # Sim(3) scale of a metric-scale run
+HYP_INLIER_SHARE_TOL = 0.02    # pair stage under JAX's draws: inliers
+HYP_ROT_TOL_DEG = 0.05         # and rotation, against the JAX package's
+MIXED_FRAMES_MIN = 31          # ring94x2: frames only one scene keyframes
+# ring94x2's depth: the first X2_FRAMES frames of both rings (cut from 94:
+# the whole script must end inside its time limit; PERF.md section 4)
+X2_FRAMES = 48
+
+# the rings of the phase besides ring47 (``ring_dir()``), rendered once by
+# the phase and read by its jobs
+VARIANT_RINGS = {
+    "ring94": stockgate_spec,
+    # scene 1 of ring94x2: the steps in the other phase, texture seed + 1
+    "ring94b": lambda: stockgate_spec(large_first=True,
+                                      seed=ring_spec().seed + 1),
+    "structured": structured_spec,
+}
+
+
+def variant_config(name: str):
+    """The port's config of variant ``name`` (VARIANT_OVERRIDES)."""
+    from sfm_tpu_torch.config import load_config
+
+    return load_config(None, overrides=VARIANT_OVERRIDES[name])
+
+
+def load_ring(root: Path):
+    """A rendered ring: (dataset, frames, names)."""
+    from sfm_tpu_torch.utils.dataset import TempleRing
+
+    ds = TempleRing.from_dir(root)
+    return ds, [ds.load_gray(i) for i in range(len(ds.records))], \
+        [r.img for r in ds.records]
+
+
+def variant_run(dev, name, ring, out_dir, pri_source=None):
+    """One ScanSfM run (process, finalize, export) of variant ``name`` on
+    ``ring`` (``load_ring``), the kernel launch counts set to 0 just before
+    it and read just after: (ScanSfM, its figures)."""
+    ds, frames, names = ring
+    cfg = variant_config(name)
+    reset_launches()
+    s, _, dt, _ = run_pipeline(
+        dev, ds.K, frames, names, out_dir, cfg, pri_source,
+        gt_records=ds.records if cfg.use_gt_scale else None)
+    counts = read_launches()
+    n = len(frames)
+    return s, {
+        "frames": n, "keyframes": len(s.kfs),
+        **keyframe_cadence([kf.frame_idx for kf in s.kfs], n),
+        "map_points": len(s.map_xyz),
+        "loop_edges": [(e.i, e.j) for e in s.edges if e.is_loop],
+        "loop_verifications": s.loop_verifications,
+        "ate_ratio": ate_ratio(s.kfs, ds), "wall_s": dt, "launches": counts,
+        # the tracker's two passes per frame and each loop verification's
+        "k3_expected": (n - 1 + s.loop_verifications) * LEVELS * 2,
+        "finite": bool(np.isfinite(np.stack([kf.center for kf in s.kfs]))
+                       .all() and np.isfinite(s.map_xyz).all())}
+
+
+def run_checks(run: dict) -> dict:
+    """What every ScanSfM run of the phase must show: K3 launched once per
+    level and direction of each tracker pass and loop verification, K1 at
+    least once, finite centres and map."""
+    return {"k3_launches": run["launches"]["lk_level_fused"]
+            == run["k3_expected"],
+            "k1_launches": run["launches"]["shi_tomasi_score"] >= 1,
+            "finite": run["finite"]}
+
+
+def jaccard(a, b) -> float:
+    a, b = set(a), set(b)
+    return len(a & b) / len(a | b)
+
+
+def add_counts(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def job_stockgate(dev, root: Path, jax_draws_on: bool) -> dict:
+    """ring94_stockgate's run: bench_dense_variant's 94-frame ring and
+    configuration through ScanSfM on the card's own draws, or on the JAX
+    package's draws at the configuration's seed (tools/jax_draws.py)."""
+    ring = load_ring(root / "ring94")
+    draws = None
+    if jax_draws_on:
+        from tools import jax_draws
+
+        cfg = variant_config("stockgate94")
+        draws = jax_draws.scan_draws(cfg.ransac.seed,
+                                     cfg.ransac.num_hypotheses,
+                                     cfg.klt.max_tracks, device=dev)
+    return variant_run(dev, "stockgate94", ring,
+                       root / ("sg_jd" if jax_draws_on else "sg_own"),
+                       pri_source=draws)[1]
+
+
+def stockgate_line(own: dict, jd: dict) -> tuple[dict, dict]:
+    """ring94_stockgate's line from its two runs: the bars on the run on
+    the card's own draws; the run on JAX's draws held beside the JAX
+    package's CPU run under the same draws (Jaccard of the keyframe
+    frames, both ATEs)."""
+    ref = VARIANTS_JAX_CPU["stockgate94"]
+    jd = {**jd, "kf_jaccard_jax_cpu": jaccard(jd["kf_frames"],
+                                              ref["kf_frames"]),
+          "ate_ratio_jax_cpu": ref["ate_ratio"]}
+    checks = {
+        "skipped_frames": own["skipped_frames"] >= STOCKGATE_SKIPPED_MIN,
+        "edge_ransac_runs": 2 * own["edge_ransac_runs"] >= own["keyframes"],
+        "ate": own["ate_ratio"] < 0.05,
+        "keyframes_vs_jax": abs(own["keyframes"] - ref["keyframes"])
+        <= KEYFRAME_SHARE_TOL * ref["keyframes"],
+        "loop_edges": len(own["loop_edges"]) >= 1 or not ref["loop_edges"],
+        **run_checks(own),
+        **{f"jax_draws_{k}": v for k, v in run_checks(jd).items()},
+    }
+    line = {"phase": "variants", "run": "ring94_stockgate", **own,
+            "jax_draws": jd, "jax_cpu": ref, "checks": checks,
+            "ok": all(checks.values())}
+    return line, add_counts(own["launches"], jd["launches"])
+
+
+def job_structured(dev, root: Path) -> tuple[dict, dict]:
+    """ring47_structured_stock: bench_stock_thresholds' structured-texture
+    ring at the stock thresholds through ScanSfM: the stock 0.94 loop gate
+    must fire."""
+    _, run = variant_run(dev, "structured_stock",
+                         load_ring(root / "structured"),
+                         root / "structured_out")
+    checks = {"loop_edges": len(run["loop_edges"]) >= 1,
+              "keyframes": run["keyframes"] >= 30,
+              "ate": run["ate_ratio"] < 0.05, **run_checks(run)}
+    line = {"phase": "variants", "run": "ring47_structured_stock", **run,
+            "jax_cpu": VARIANTS_JAX_CPU["structured_stock"],
+            "checks": checks, "ok": all(checks.values())}
+    return line, run["launches"]
+
+
+def cpp_ate_grades(par: Path, kf_csv: Path, n_kf: int) -> dict | None:
+    """The C++ tool ``cpp/build/ate_keyframes``'s Sim(3) and SE(3) ATE of
+    an exported centres CSV over all keyframes and over the first 4, with
+    the Sim(3) scale; None where the tool was not built."""
+    tool = Path(__file__).resolve().parent / "cpp" / "build" / "ate_keyframes"
+    if not tool.exists():
+        return None
+    out = {}
+    for sfx, count in (("", n_kf), ("_n4", 4)):
+        for mode in ("sim3", "se3"):
+            res = subprocess.run(
+                [str(tool), "--par", str(par), "--keyframes", str(kf_csv),
+                 "--start", "0", "--count", str(count), f"--{mode}"],
+                capture_output=True, text=True, timeout=60)
+            for ln in res.stdout.splitlines():
+                if "ATE_RMSE" in ln:
+                    out[f"ate_{mode}{sfx}"] = float(ln.split(":")[-1])
+                if mode == "sim3" and "scale (s)" in ln:
+                    out[f"alignment_scale{sfx}"] = float(ln.split(":")[-1])
+    return out
+
+
+def port_ate(est, gt, with_scale: bool) -> tuple[float, float]:
+    """The port's ``umeyama.ate`` (float64): (RMSE, scale)."""
+    from sfm_tpu_torch.ops import umeyama
+
+    r = umeyama.ate(torch.as_tensor(est), torch.as_tensor(gt),
+                    with_scale=with_scale)
+    return float(r["rmse"]), float(r["scale"])
+
+
+def job_gtscale(dev, root: Path) -> tuple[dict, dict]:
+    """ring47_gtscale: ring_spec() at smoke_config() with use_gt_scale and
+    the GT records through ScanSfM, graded as bench_gtscale_se3 grades it
+    (``gtscale_grades``)."""
+    ring = load_ring(root / "ring47")
+    ds = ring[0]
+    s, run = variant_run(dev, "gtscale", ring, root / "gtscale_out")
+    est = np.stack([kf.center for kf in s.kfs]).astype(np.float64)
+    gt = np.stack([ds.records[kf.frame_idx].center for kf in s.kfs])
+    grades = gtscale_grades(port_ate, est, gt)
+    lo, hi = GTSCALE_SCALE_RANGE
+    checks = {"alignment_scale": lo <= grades["alignment_scale"] <= hi,
+              "ate_se3": grades["ate_ratio_se3"] < 0.05, **run_checks(run)}
+    line = {"phase": "variants", "run": "ring47_gtscale", **run, **grades,
+            "cpp_ate_keyframes": cpp_ate_grades(
+                ds.root / "templeR_par.txt",
+                root / "gtscale_out" / "keyframes_camera_centers.csv",
+                len(s.kfs)),
+            "jax_cpu": VARIANTS_JAX_CPU["gtscale"], "checks": checks,
+            "ok": all(checks.values())}
+    return line, run["launches"]
+
+
+def rot_angle_deg(R) -> float:
+    """The angle of a rotation matrix, degrees (atan2 of its sine and
+    cosine: exact near 0, where arccos of the trace is not)."""
+    R = np.asarray(R, np.float64)
+    sin = 0.5 * np.linalg.norm([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
+                                R[1, 0] - R[0, 1]])
+    return float(np.degrees(np.arctan2(sin, (np.trace(R) - 1.0) / 2.0)))
+
+
+def variant_hyp4096(dev, root: Path) -> tuple[dict, dict]:
+    """pair1024_hyp4096: bench_hyp4096's pair stage in the port on frames
+    0 and 1 of ring_spec(): build_pyramid_u8, then lk_track_fb
+    (HYP_LEVELS levels), then find_E_ransac with HYP_H hypotheses.  The
+    first call (the warm-up) draws the JAX bench's first priorities
+    (jax.random.PRNGKey(HYP_SEED), tools/jax_draws.py) and is held to the
+    JAX package's CPU result; then HYP_REPS timed calls on the card's
+    generator, the launch counts set to 0 just before them.  K3 at this
+    shape (HYP_TRACKS tracks, HYP_LEVELS levels) is also held to its plain
+    version by check_lk_level's rule, on the kernels phase's inputs."""
+    from tools import jax_draws
+    from sfm_tpu_torch.models.system import build_pyramid_u8
+    from sfm_tpu_torch.ops import epipolar, klt, umeyama
+    from sfm_tpu_torch.utils.dataset import TempleRing
+
+    ref = VARIANTS_JAX_CPU["hyp4096"]
+    ds = TempleRing.from_dir(root / "ring47")
+    K = torch.as_tensor(ds.K, dtype=torch.float32, device=dev)
+    pos = torch.as_tensor(hyp_tracks(), device=dev)
+    valid = torch.ones(HYP_TRACKS, dtype=torch.bool, device=dev)
+    g0, g1 = (torch.as_tensor(np.array(ds.load_gray(i)), device=dev)
+              for i in (0, 1))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(HYP_SEED)
+
+    def pair(pri=None):
+        p0 = build_pyramid_u8(g0, HYP_LEVELS)
+        p1 = build_pyramid_u8(g1, HYP_LEVELS)
+        new_pos, ok = klt.lk_track_fb(p0, p1, pos, valid, levels=HYP_LEVELS,
+                                      iters=ITERS, radius=RADIUS,
+                                      fb_thresh=1.0, device=dev)
+        rp = epipolar.find_E_ransac(
+            gen, epipolar.normalize_by_K(K, pos),
+            epipolar.normalize_by_K(K, new_pos), valid & ok,
+            num_hypotheses=HYP_H, sampson_thresh=HYP_SAMPSON,
+            min_inliers=HYP_MIN_INLIERS, pri=pri)
+        return rp, ok
+
+    rp, ok = pair(jax_draws.uniform(jax_draws.key(HYP_SEED),
+                                    (HYP_H, HYP_TRACKS), device=dev))
+    R0, t0_ = rp.R.double(), rp.t.double()
+    R_gt, t_gt = (torch.as_tensor(a, device=dev) for a in _rel_pose(ds, 0, 1))
+    rot_gt, dir_gt = (float(a) for a in umeyama.edge_errors(R0, t0_, R_gt,
+                                                             t_gt))
+    first = {"inliers": int(rp.num_inliers), "tracked": int(ok.sum()),
+             "R": R0.cpu().tolist(), "t": t0_.cpu().tolist(),
+             "rot_vs_jax_deg": rot_angle_deg(
+                 R0.cpu().numpy() @ np.asarray(ref["R"]).T),
+             "rot_err_gt_deg": rot_gt, "dir_err_gt_deg": dir_gt}
+    reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(HYP_REPS):
+        rp, _ = pair()
+    inl = int(rp.num_inliers)  # the last rep's, fetched after the loop
+    dt = time.perf_counter() - t0
+    counts = read_launches()
+    rng = np.random.default_rng(RADII_SEED)
+    pyr0, pyr1 = lk_inputs(dev, rng)
+    lk = check_lk_level(dev, rng, pyr0[:HYP_LEVELS], pyr1[:HYP_LEVELS],
+                        T=HYP_TRACKS, levels=HYP_LEVELS)
+    lk = {k: lk[k] for k in ("shape", "max_abs_err", "max_abs_err_border",
+                             "max_step_excess", "border_far", "ms",
+                             "plain_ms", "bound_ms", "bound_by", "ok")}
+    checks = {
+        "inliers": first["inliers"] >= HYP_MIN_INLIERS
+        and inl >= HYP_MIN_INLIERS,
+        "k3_launches": counts["lk_level_fused"] == 4 * HYP_REPS,
+        "inliers_vs_jax": abs(first["inliers"] - ref["inliers"])
+        <= HYP_INLIER_SHARE_TOL * ref["inliers"],
+        "rot_vs_jax": first["rot_vs_jax_deg"] <= HYP_ROT_TOL_DEG,
+        "k3_vs_plain": lk["ok"],
+    }
+    line = {"phase": "variants", "run": "pair1024_hyp4096",
+            "hypotheses": HYP_H, "pyr_levels": HYP_LEVELS,
+            "tracks": HYP_TRACKS, "reps": HYP_REPS, "wall_s": dt,
+            "pairs_per_sec": HYP_REPS / dt, "inliers_last": inl,
+            "jax_draws_first_call": first, "launches": counts,
+            "k3_at_this_shape": lk, "jax_cpu": ref, "checks": checks,
+            "ok": all(checks.values())}
+    return line, counts
+
+
+def job_x2_scenes(dev, root: Path) -> dict:
+    """ring94x2_stockgate's multi-scene run: run_scenes_scan over the
+    first X2_FRAMES frames of ring94 (scene 0) and ring94b (scene 1) at
+    bench_dense_variant's configuration, chunk 16, loop verification on
+    the host (the runner forces it); launch counts set to 0 just before
+    it and read just after."""
+    from sfm_tpu_torch.parallel.multi_scan import run_scenes_scan
+
+    n = X2_FRAMES
+    rings = [load_ring(root / r) for r in ("ring94", "ring94b")]
+    dss = [r[0] for r in rings]
+    reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    res = run_scenes_scan(dss, variant_config("stockgate94"), frames=n,
+                          chunk=16, images=[r[1][:n] for r in rings],
+                          device=dev)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    counts = read_launches()
+    views = res["views"]
+    return {"wall_s": dt, "launches": counts,
+            "kf_frames": [[int(f) for f in k] for k in res["kf_frames"]],
+            "loop_edges": [[(e.i, e.j) for e in le]
+                           for le in res["loop_edges"]],
+            "map_points": [int(k) for k in res["n_points"]],
+            "ate_ratio": [ate_ratio(v.kfs, d) for v, d in zip(views, dss)],
+            "host_verifications": [v.host_verifications for v in views],
+            "centers": [np.asarray(c) for c in res["centers"]]}
+
+
+def job_x2_single(dev, root: Path) -> dict:
+    """ring94x2_stockgate's reference: the first X2_FRAMES frames of ring94
+    alone through ScanSfM at the multi-scene run's settings (chunk 16,
+    host loop verification)."""
+    import dataclasses
+
+    from sfm_tpu_torch.models.scan_pipeline import ScanSfM
+
+    n = X2_FRAMES
+    ds, frames, names = load_ring(root / "ring94")
+    cfg = variant_config("stockgate94")
+    cfg = dataclasses.replace(cfg, loop=dataclasses.replace(
+        cfg.loop, device_verify=False))
+    one = ScanSfM(ds.K, cfg, n_frames=n, chunk=16, p_cap=16384, p_ba=1024,
+                  device=dev)
+    t0 = time.perf_counter()
+    for i in range(n):
+        one.process(i, names[i], frames[i])
+    one.finalize()
+    return {"wall_s": time.perf_counter() - t0,
+            "kf_frames": [kf.frame_idx for kf in one.kfs],
+            "loop_edges": [(e.i, e.j) for e in one.loop_edges],
+            "centers": np.stack([kf.center for kf in one.kfs])}
+
+
+def x2_line(ms: dict, one: dict) -> tuple[dict, dict]:
+    """ring94x2_stockgate's line: per scene keyframes, skipped frames,
+    ATE and loop edges; ``mixed_frames``, the frames where exactly one
+    scene keyframed; scene 0 against the single-scene run."""
+    n = X2_FRAMES
+    kf = ms["kf_frames"]
+    centers = ms.pop("centers")
+    c0 = centers[0]
+    same_kf = kf[0] == one["kf_frames"]
+    d_centers = (float(np.abs(c0 - one["centers"]).max()) if same_kf
+                 else float("inf"))
+    mixed = len(set(kf[0]) ^ set(kf[1]))
+    counts = ms["launches"]
+    ref = VARIANTS_JAX_CPU["stockgate94"]
+    checks = {
+        "ate": all(r < 0.05 for r in ms["ate_ratio"]),
+        "mixed_frames": mixed >= MIXED_FRAMES_MIN,
+        # one launch per level and direction serves both scenes
+        "k3_launches": counts["lk_level_fused"]
+        == (n - 1 + sum(ms["host_verifications"])) * LEVELS * 2,
+        "finite": all(bool(np.isfinite(c).all()) for c in centers),
+        "scene0_keyframes_match": same_kf,
+        "scene0_loop_edges_match": ms["loop_edges"][0] == one["loop_edges"],
+        "scene0_centers_match": d_centers <= 1e-5,
+    }
+    line = {
+        "phase": "variants", "run": "ring94x2_stockgate", "scenes": 2,
+        "frames": n, **ms, "scene_frames_per_sec": 2 * n / ms["wall_s"],
+        "keyframes": [len(k) for k in kf],
+        "skipped_frames": [n - len(k) for k in kf],
+        "edge_ransac_runs": [keyframe_cadence(k, n)["edge_ransac_runs"]
+                             for k in kf],
+        "mixed_frames": mixed,
+        "single_scene0": {
+            "wall_s": one["wall_s"], "keyframes": len(one["kf_frames"]),
+            "centers_max_abs_diff": d_centers,
+            "centers_bit_equal": same_kf and bool(
+                np.array_equal(c0, one["centers"]))},
+        # the JAX package's CPU run of scene 0's whole ring (its own draws)
+        "jax_cpu_scene0_ring_first_frames": [
+            f for f in ref["kf_frames"] if f < n],
+        "checks": checks, "ok": all(checks.values()),
+    }
+    return line, counts
+
+
+# the phase's ScanSfM runs, each in a process of its own, all at once
+# (each is bound by its host thread; the card is idle most of the time)
+VARIANT_JOBS = {
+    "ring94_own": lambda dev, root: job_stockgate(dev, root, False),
+    "ring94_jd": lambda dev, root: job_stockgate(dev, root, True),
+    "structured": job_structured,
+    "gtscale": job_gtscale,
+    "x2_scenes": job_x2_scenes,
+    "x2_single": job_x2_single,
+}
+
+
+def render_ring(name: str, root: str) -> None:
+    """Renders VARIANT_RINGS[name] under ``root``."""
+    from sfm_tpu_torch.utils.synthetic import generate_dataset
+
+    generate_dataset(Path(root) / name, VARIANT_RINGS[name](),
+                     name_prefix="templeR")
+
+
+def variant_job(name: str, root: str, device: str):
+    """One job of VARIANT_JOBS in a spawned process, on ``device``: (its
+    result, its seconds)."""
+    import sfm_tpu_torch  # noqa: F401  (sets the precision policy)
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = VARIANT_JOBS[name](torch.device(device), Path(root))
+    return out, time.perf_counter() - t0
+
+
+def phase_variants(dev, smi: str) -> tuple[bool, dict]:
+    """bench.py's other configurations through the port on the card, one
+    line a run (each with the card's name and power limit and the JAX
+    package's CPU figures, VARIANTS_JAX_CPU): ring94_stockgate,
+    ring47_structured_stock, ring47_gtscale, pair1024_hyp4096 and
+    ring94x2_stockgate.  The ScanSfM runs go through VARIANT_JOBS in
+    parallel processes (their walls are taken side by side, with
+    ``concurrent_jobs`` beside them); then the pair stage runs alone in
+    this process, for its pairs/s.  Returns whether every run passed its
+    bars, and each run's kernel launch counts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with tempfile.TemporaryDirectory(prefix="sfm_variants_") as tmp:
+        root = Path(tmp)
+        (root / "ring47").symlink_to(ring_dir(), target_is_directory=True)
+        with ThreadPoolExecutor(len(VARIANT_RINGS)) as ex:
+            list(ex.map(lambda name: render_ring(name, tmp), VARIANT_RINGS))
+        t0 = time.perf_counter()
+        res = dict(zip(VARIANT_JOBS, in_processes(
+            [(variant_job, name, tmp, str(dev)) for name in VARIANT_JOBS])))
+        jobs_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        hyp = variant_hyp4096(dev, root)
+        hyp_s = time.perf_counter() - t1
+    side = {"concurrent_jobs": len(VARIANT_JOBS), "jobs_wall_s": jobs_s}
+    lines = [
+        (*stockgate_line(res["ring94_own"][0], res["ring94_jd"][0]),
+         {"job_s": [res["ring94_own"][1], res["ring94_jd"][1]], **side}),
+        (*res["structured"][0], {"job_s": res["structured"][1], **side}),
+        (*res["gtscale"][0], {"job_s": res["gtscale"][1], **side}),
+        (*hyp, {"job_s": hyp_s}),
+        (*x2_line(res["x2_scenes"][0], res["x2_single"][0]),
+         {"job_s": [res["x2_scenes"][1], res["x2_single"][1]], **side}),
+    ]
+    by_run, ok = {}, True
+    for line, counts, extra in lines:
+        emit({**line, **extra, "nvidia_smi": smi})
+        by_run[line["run"]] = counts
+        ok &= line["ok"]
+    return ok, by_run
 
 
 # ---------------------------------------------------------------------------
@@ -2668,11 +3353,13 @@ def short_ring_spec(n: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["kernels", "ate_seeds"],
+    ap.add_argument("--only", choices=["kernels", "ate_seeds", "variants"],
                     default=None,
                     help="kernels: stop after the kernel checks; "
                          "ate_seeds: the build, then the pipeline and "
-                         "ate_seeds phases alone (no kernel checks)")
+                         "ate_seeds phases alone (no kernel checks); "
+                         "variants: the build, then the variants phase "
+                         "alone")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of 4 frames and "
                          "a loop-off/on comparison of the 47-frame run")
@@ -2709,6 +3396,10 @@ def main() -> int:
             line, _ = phase_ate_seeds(dev, line, warm)
         emit(line)
         return 0 if line["ok"] else 1
+    if args.only == "variants":
+        with torch.no_grad():
+            ok, _ = phase_variants(dev, smi)
+        return 0 if ok else 1
 
     spec = ring_spec()
     K, Rs, ts, _, _ = make_ring_cameras(spec)
@@ -2765,6 +3456,12 @@ def main() -> int:
             return 1
         if path_counts is not None:
             by_path[name] = path_counts
+    with torch.no_grad():
+        ok, variant_counts = phase_variants(dev, smi)
+    if not ok:
+        print("chip_smoke: the variants phase failed", file=sys.stderr)
+        return 1
+    by_path.update(variant_counts)
     with torch.no_grad():
         line = phase_mesh(dev, sparse_inputs)
     emit(line)

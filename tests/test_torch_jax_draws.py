@@ -46,3 +46,24 @@ def test_torch_jax_draws_scan_stream():
             b, np.asarray(jax.random.uniform(k2, (H, N), jnp.float32)))
     with pytest.raises(ValueError):
         draws(5)
+
+
+def test_torch_jax_draws_scenes_stream():
+    """The multi-scene runner's streams: scene s's key is ``fold_in(base,
+    s)`` (scene 0: ``base``), split in three a frame as in ScanSfM."""
+    H, N, seed, S = 8, 24, 12345, 3
+    for d in (0, 1, 2, 2 ** 32 - 1):
+        want = jax.random.fold_in(jax.random.PRNGKey(seed), d)
+        assert jax_draws.fold_in(jax_draws.key(seed), d) == tuple(
+            int(v) for v in want)
+    draws = jax_draws.scenes_draws(seed, S, H, N)
+    base = jax.random.PRNGKey(seed)
+    keys = [base] + [jax.random.fold_in(base, s) for s in range(1, S)]
+    for idx in (1, 2):
+        for s in range(S):
+            keys[s], k1, k2 = jax.random.split(keys[s], 3)
+            a, b = draws(s, idx)
+            np.testing.assert_array_equal(
+                a, np.asarray(jax.random.uniform(k1, (H, N), jnp.float32)))
+            np.testing.assert_array_equal(
+                b, np.asarray(jax.random.uniform(k2, (H, N), jnp.float32)))

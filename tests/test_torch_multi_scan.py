@@ -72,19 +72,41 @@ def _jax_draws(seed: int, S: int, shape):
     return draws, seen
 
 
-@pytest.fixture(scope="module")
-def runs(two_rings):
-    """The JAX run and the port's run with JAX's draws."""
+# scene 1 of the out-of-phase case: the out-and-back path with a
+# 2.5-degree step out (frame 2) and one back (frame 12), under the 8-px
+# parallax gate, so that scene 1 skips those frames while scene 0 (every
+# step 5 degrees) keyframes on them; the frame after each skip keyframes
+# two frames after its previous keyframe
+LONS_OUT_OF_PHASE = (0.0, 5.0, 7.5, 12.5, 17.5, 22.5, 27.5, 32.5, 27.5,
+                     22.5, 17.5, 12.5, 10.0, 5.0, 0.0)
+
+
+def _jax_and_port(rings):
+    """The JAX run of ``rings`` and the port's run with JAX's draws."""
     n = len(LONS)
     kw = dict(frames=n, chunk=CHUNK, p_cap=P_CAP, p_ba=P_BA)
-    jres = jms.run_scenes_scan(two_rings, _cfg(jconfig), **kw)
+    jres = jms.run_scenes_scan(rings, _cfg(jconfig), **kw)
     cfg = _cfg(config)
     draws, seen = _jax_draws(cfg.ransac.seed, 2,
                              (cfg.ransac.num_hypotheses, cfg.klt.max_tracks))
-    tres = ms.run_scenes_scan(two_rings, cfg, device="cpu",
+    tres = ms.run_scenes_scan(rings, cfg, device="cpu",
                               _pri_source=draws, **kw)
     assert sorted(seen) == [(s, i) for s in range(2) for i in range(1, n)]
     return jres, tres
+
+
+@pytest.fixture(scope="module")
+def runs(two_rings):
+    """The JAX run and the port's run with JAX's draws."""
+    return _jax_and_port(two_rings)
+
+
+@pytest.fixture(scope="module")
+def runs_out_of_phase(two_rings, tmp_path_factory):
+    """The same with scene 1 on LONS_OUT_OF_PHASE (texture seed 8)."""
+    slow = _ring(tmp_path_factory.mktemp("ms_ring_out"), 8,
+                 lons=LONS_OUT_OF_PHASE)
+    return _jax_and_port([two_rings[0], slow])
 
 
 def test_torch_multi_scan_matches_jax(two_rings, runs):
@@ -94,7 +116,24 @@ def test_torch_multi_scan_matches_jax(two_rings, runs):
     holds the single-scene run to: finalized centers within 1 % of the
     trajectory's extent, map size within 0.8-1.25x of JAX's.  The result
     dict has JAX's keys and timers."""
-    jres, tres = runs
+    _check_matches_jax(*runs)
+
+
+def test_torch_multi_scan_matches_jax_out_of_phase(runs_out_of_phase):
+    """The case of ``test_torch_multi_scan_matches_jax`` with scenes that
+    keyframe on different frames (stock-gate cadence): on frames 2 and 12
+    scene 0 keyframes and scene 1 does not, in both packages, so the
+    port's runner, which runs the keyframe branch only for the scenes that
+    keyframe, decides something where the JAX runner runs it for every
+    scene and masks it back.  The same bars."""
+    jres, tres = runs_out_of_phase
+    for res in (jres, tres):
+        kf = [set(int(f) for f in res["kf_frames"][s]) for s in range(2)]
+        assert kf[0] - kf[1] == {2, 12} and not kf[1] - kf[0]
+    _check_matches_jax(jres, tres)
+
+
+def _check_matches_jax(jres, tres):
     assert set(tres) == set(jres)
     assert set(tres["timers"]) == set(jres["timers"]) == {
         "chunks", "loop_check", "finalize", "finalize_drain",

@@ -382,8 +382,7 @@ def main() -> int:
         if not (args.paired and args.compare_dumps):
             ap.error("dumps are compared as --compare-dumps DIR_REF DIR "
                      "--paired")
-        with tempfile.TemporaryDirectory(prefix="sfm_dumps_") as tmp:
-            ds, _, _ = cs.ring_dataset(Path(tmp))
+        ds, _, _ = cs.ring_dataset()
         for c in compare_paired(*args.compare_dumps, ds):
             print("PAIRED", json.dumps(c), flush=True)
         return 0
@@ -415,7 +414,7 @@ def main() -> int:
             torch.no_grad(), swapped(args.swap):
         tmp = Path(tmp)
         for ring in args.ring_seeds or [ring0]:
-            ds, frames, names = cs.ring_dataset(tmp / f"ring{ring}", ring)
+            ds, frames, names = cs.ring_dataset(ring)
             if dev.type == "cuda" and not runs:  # warm-up
                 cs.run_pipeline(dev, ds.K, frames, names, tmp / "warm")
             if args.dump:

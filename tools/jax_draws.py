@@ -7,9 +7,13 @@ is not the draws'.
 JAX 0.5): ``key(seed)`` is ``(0, seed)``; ``split(key, n)`` hashes the
 counts ``(0, i)`` under the key; ``uniform(key, shape, float32)`` hashes
 the row-major counts ``(0, i)``, xors the two output words, keeps 23
-mantissa bits and maps them to [0, 1).  ``ScanSfM`` splits its key in
-three every frame (``key, k1, k2``) and draws the frame's and the keyframe
-edge's (H,N) priorities from ``k1`` and ``k2`` (``scan_draws``).
+mantissa bits and maps them to [0, 1); ``fold_in(key, d)`` hashes the
+count ``(0, d)`` under the key.  ``ScanSfM`` splits its key in three every
+frame (``key, k1, k2``) and draws the frame's and the keyframe edge's
+(H,N) priorities from ``k1`` and ``k2`` (``scan_draws``); the multi-scene
+runner ``run_scenes_scan`` gives scene s the key ``fold_in(key(seed), s)``
+(scene 0: ``key(seed)``) and splits each scene's key so
+(``scenes_draws``).
 
     from tools.jax_draws import scan_draws
     scan._pri_source = scan_draws(cfg.ransac.seed, H, N, device="cuda")
@@ -52,6 +56,13 @@ def split(k: tuple[int, int], n: int) -> list[tuple[int, int]]:
     return [(int(p), int(q)) for p, q in zip(a, b)]
 
 
+def fold_in(k: tuple[int, int], data: int) -> tuple[int, int]:
+    """``jax.random.fold_in(k, data)`` for ``data`` in [0, 2**32)."""
+    a, b = threefry2x32(k[0], k[1], torch.zeros(1, dtype=torch.int64),
+                        torch.tensor([int(data) & _M32]))
+    return (int(a), int(b))
+
+
 def uniform(k: tuple[int, int], shape, device="cpu") -> torch.Tensor:
     """``jax.random.uniform(k, shape, jnp.float32)``: [0, 1)."""
     n = int(np.prod(shape))
@@ -68,7 +79,21 @@ def scan_draws(seed: int, H: int, N: int, device="cpu"):
     """The JAX ``ScanSfM``'s draws for ``cfg.ransac.seed = seed``, frames
     in order from 1: a callable frame -> (pri_frame, pri_edge), (H,N)
     float32 numpy arrays (the port's ``ScanSfM._pri_source``)."""
-    state = [key(seed)]
+    return _stream(key(seed), H, N, device)
+
+
+def scenes_draws(seed: int, S: int, H: int, N: int, device="cpu"):
+    """The JAX ``run_scenes_scan``'s draws for ``seed`` over S scenes: a
+    callable (scene, frame) -> (pri_frame, pri_edge), frames of each scene
+    in order from 1 (the port's ``run_scenes_scan(_pri_source=)``)."""
+    base = key(seed)
+    streams = [_stream(base if s == 0 else fold_in(base, s), H, N, device)
+               for s in range(S)]
+    return lambda s, idx: streams[s](idx)
+
+
+def _stream(k: tuple[int, int], H: int, N: int, device):
+    state = [k]
     seen = []
 
     def draws(idx: int):

@@ -22,6 +22,34 @@ two distributions.
 One run takes about 6 min (``scan``) or 9 min (``host``) alone on an
 8-core x86 CPU, and about twice that with three such processes side by
 side; the default is seed 12345 (the configuration's own).
+
+The modes ``stockgate94``, ``structured_stock``, ``gtscale`` and
+``hyp4096`` run bench.py's other configurations through the JAX package
+on the CPU, as ``chip_smoke.py``'s ``variants`` phase runs them through
+the port on the card, and print one JSON line per seed with the fields
+that phase prints:
+
+- ``stockgate94``: bench_dense_variant's 94-frame ring at the stock
+  keyframe gate (``chip_smoke.stockgate_spec()``, ``VARIANT_OVERRIDES``);
+  keyframes and their frame indices, skipped frames, ``edge_ransac_runs``
+  (keyframes whose previous keyframe is not the previous frame), map
+  points, loop edges, Sim(3) ATE ratio;
+- ``structured_stock``: bench_stock_thresholds' structured-texture ring
+  at the stock thresholds, the same fields;
+- ``gtscale``: ``ring_spec()`` with ``use_gt_scale`` and the GT records:
+  the same fields plus the Sim(3) and SE(3) ATE (RMSE and ratio) over all
+  keyframes and over the first 4, and the Sim(3) alignment scale;
+- ``hyp4096``: bench_hyp4096's pair stage on frames 0 and 1 of
+  ``ring_spec()`` with the draws of ``jax.random.PRNGKey(seed)`` (default
+  ``HYP_SEED`` = 0, the JAX bench's first call): inliers, tracked tracks,
+  R, t, and the rotation and direction errors against the GT relative
+  pose.
+
+    JAX_PLATFORMS=cpu python tools/jax_ring47_edges.py stockgate94 \
+        structured_stock gtscale hyp4096 [--seeds ...]
+
+``docs/bench_variants/jax_cpu.jsonl`` keeps these lines (its README names
+each command); ``chip_smoke.VARIANTS_JAX_CPU`` cites them.
 """
 
 from __future__ import annotations
@@ -94,11 +122,124 @@ def run(which: str, ds, seed: int, out_dir: Path):
     return s, line
 
 
+VARIANTS = ("stockgate94", "structured_stock", "gtscale", "hyp4096")
+
+
+def variant_dataset(name: str, root: Path):
+    """The ring of variant ``name`` rendered by the JAX package under
+    ``root``."""
+    spec = {"stockgate94": cs.stockgate_spec,
+            "structured_stock": cs.structured_spec}.get(name, cs.ring_spec)()
+    generate_dataset(root, SyntheticRingSpec(**dataclasses.asdict(spec)),
+                     name_prefix="templeR")
+    return TempleRing.from_dir(root)
+
+
+def jax_ate(est, gt, with_scale: bool) -> tuple[float, float]:
+    """The JAX package's ``umeyama.ate`` (float64): (RMSE, scale)."""
+    r = umeyama.ate(jnp.asarray(est, jnp.float64),
+                    jnp.asarray(gt, jnp.float64), with_scale=with_scale)
+    return float(r["rmse"]), float(r["scale"])
+
+
+def run_variant(name: str, ds, seed: int, out_dir: Path) -> dict:
+    """One ScanSfM run of variant ``name`` (not hyp4096) at ``seed``."""
+    cfg = jconfig.load_config(None, overrides=cs.VARIANT_OVERRIDES[name])
+    cfg = dataclasses.replace(
+        cfg, ransac=dataclasses.replace(cfg.ransac, seed=seed))
+    n = len(ds.records)
+    t0 = time.perf_counter()
+    s = jsp.ScanSfM(ds.K, cfg, n_frames=n, chunk=32, p_cap=16384,
+                    p_ba=1024,
+                    gt_records=ds.records if cfg.use_gt_scale else None)
+    for i in range(n):
+        s.process(i, ds.records[i].img, ds.load_gray(i))
+    s.finalize()
+    wall = time.perf_counter() - t0
+    info = s.export(out_dir, dataset=ds)
+    est = np.stack([k.center for k in s.kfs]).astype(np.float64)
+    gtc = np.stack([ds.records[k.frame_idx].center for k in s.kfs])
+    extent = float(np.linalg.norm(gtc - gtc.mean(0), axis=1).max())
+    line = {"mode": name, "seed": seed, "frames": n,
+            "keyframes": len(s.kfs),
+            **cs.keyframe_cadence([k.frame_idx for k in s.kfs], n),
+            "map_points": int(info["map_points"]),
+            "loop_edges": [(e.i, e.j) for e in s.edges if e.is_loop],
+            "ate_ratio": jax_ate(est, gtc, True)[0] / extent,
+            "wall_s": wall}
+    if cfg.use_gt_scale:
+        line.update(cs.gtscale_grades(jax_ate, est, gtc))
+    return line
+
+
+def run_hyp4096(ds, seed: int) -> dict:
+    """bench_hyp4096's pair stage (one jitted program, as bench.py's) on
+    frames 0 and 1 with the draws of ``jax.random.PRNGKey(seed)``."""
+    import jax
+
+    from sfm_tpu.models.system import build_pyramid_u8
+    from sfm_tpu.ops import epipolar, klt
+
+    Kf = jnp.asarray(ds.K, jnp.float32)
+    pos = jnp.asarray(cs.hyp_tracks())
+    valid = jnp.ones(cs.HYP_TRACKS, bool)
+
+    @jax.jit
+    def pair(key, im0, im1, pos, valid):
+        p0 = build_pyramid_u8(im0, cs.HYP_LEVELS)
+        p1 = build_pyramid_u8(im1, cs.HYP_LEVELS)
+        new_pos, ok = klt.lk_track_fb(p0, p1, pos, valid,
+                                      levels=cs.HYP_LEVELS, iters=cs.ITERS,
+                                      radius=cs.RADIUS, fb_thresh=1.0)
+        xi = epipolar.normalize_by_K(Kf, pos)
+        xj = epipolar.normalize_by_K(Kf, new_pos)
+        rp = epipolar.find_E_ransac(
+            key, xi, xj, valid & ok, num_hypotheses=cs.HYP_H,
+            sampson_thresh=cs.HYP_SAMPSON, min_inliers=cs.HYP_MIN_INLIERS)
+        return rp.R, rp.t, rp.num_inliers, jnp.sum(valid & ok)
+
+    t0 = time.perf_counter()
+    R, t, inl, n_ok = (np.asarray(a) for a in pair(
+        jax.random.PRNGKey(seed), jnp.asarray(ds.load_gray(0)),
+        jnp.asarray(ds.load_gray(1)), pos, valid))
+    wall = time.perf_counter() - t0
+    R_gt, t_gt = cs._rel_pose(ds, 0, 1)
+    rot, dirn = (float(np.asarray(a)) for a in umeyama.edge_errors(
+        jnp.asarray(R, jnp.float64), jnp.asarray(t, jnp.float64),
+        jnp.asarray(R_gt), jnp.asarray(t_gt)))
+    return {"mode": "hyp4096", "seed": seed, "hypotheses": cs.HYP_H,
+            "pyr_levels": cs.HYP_LEVELS, "tracks": cs.HYP_TRACKS,
+            "inliers": int(inl), "tracked": int(n_ok),
+            "R": R.astype(np.float64).tolist(),
+            "t": t.astype(np.float64).tolist(),
+            "rot_err_gt_deg": rot, "dir_err_gt_deg": dirn,
+            "wall_s_first_call": wall}
+
+
+def main_variants(modes, seeds) -> int:
+    """The JSON lines of bench.py's other configurations (``VARIANTS``)."""
+    for name in modes:
+        with tempfile.TemporaryDirectory(prefix="jax_variant_") as tmp:
+            ds = variant_dataset(name, Path(tmp) / "ring")
+            if name == "hyp4096":
+                for seed in seeds or [cs.HYP_SEED]:
+                    print(json.dumps(run_hyp4096(ds, seed)), flush=True)
+                continue
+            for seed in seeds or [cs.smoke_config().ransac.seed]:
+                print(json.dumps(run_variant(name, ds, seed,
+                                             Path(tmp) / f"out{seed}")),
+                      flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("pipelines", nargs="*", default=["scan", "host"],
-                    help="scan (ScanSfM) and/or host (SfMSystem)")
-    ap.add_argument("--seeds", type=int, nargs="+", default=[12345])
+                    help="scan (ScanSfM) and/or host (SfMSystem) on "
+                         "ring47; or any of " + ", ".join(VARIANTS))
+    ap.add_argument("--seeds", type=int, nargs="+", default=None,
+                    help="RANSAC seeds (default: 12345; hyp4096: the "
+                         "PRNGKey seed, default HYP_SEED)")
     ap.add_argument("--ring-seeds", type=int, nargs="+", default=None,
                     help="texture seeds of the ring (default: the ring's "
                          "own), as tools/chip_ate_spread.py --ring-seeds")
@@ -107,9 +248,13 @@ def main() -> int:
                          "keyframe centres to DIR/scan<seed>.json, as "
                          "tools/chip_ate_spread.py --dump does")
     args = ap.parse_args()
-    rec = chip_ate_spread.record_runs(jsp) if args.dump else None
+    if set(args.pipelines) <= set(VARIANTS):
+        return main_variants(args.pipelines, args.seeds)
     if not set(args.pipelines) <= {"scan", "host"}:
-        ap.error("pipelines are scan and host")
+        ap.error("pipelines are scan and host, or the variants "
+                 + ", ".join(VARIANTS) + " (not both kinds at once)")
+    args.seeds = args.seeds or [12345]
+    rec = chip_ate_spread.record_runs(jsp) if args.dump else None
     ring0 = cs.ring_spec().seed
     for ring in args.ring_seeds or [ring0]:
         spec = SyntheticRingSpec(**{**dataclasses.asdict(cs.ring_spec()),
